@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from baby_plonk_tpu.fields import fr
-from baby_plonk_tpu.protocol.poly import Basis
+from ..fields import fr
+from ..protocol.poly import Basis
 
 from . import limbs
 from .limbs import FR
@@ -83,7 +83,7 @@ def pad_to(a: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _debug_asserts() -> bool:
-    from baby_plonk_tpu.config import get_config
+    from ..config import get_config
 
     return get_config().debug_asserts
 

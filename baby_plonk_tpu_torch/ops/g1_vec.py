@@ -10,13 +10,14 @@ there (padd :132, pdouble :165, padd_mixed :188); the plain versions here
 compute the same canonical coordinates as the JAX package and as the
 device functions of ``csrc/g1.cuh``.
 
-Kernel: ``bpt_g1_padd`` (csrc/g1.cu), the step of ``tree_reduce``.
+Kernels (csrc/g1.cu): ``bpt_g1_padd``, the step of ``tree_reduce`` and of
+the Pippenger scans, and ``bpt_g1_pdouble``, the Pippenger window shift.
 """
 from __future__ import annotations
 
 import torch
 
-from baby_plonk_tpu.fields import fq
+from ..fields import fq
 
 from . import kernels, limbs
 
@@ -126,10 +127,12 @@ def pidentity(shape, device, dtype=torch.int32):
 
 
 def pselect(cond, p_true, p_false):
+    """Lanewise choice between two point batches (tensor glue on either
+    device, as in the JAX package)."""
     return tuple(torch.where(cond[None], a, b) for a, b in zip(p_true, p_false))
 
 
-# -- the launcher ---------------------------------------------------------------
+# -- the launchers --------------------------------------------------------------
 
 
 def padd(p, q):
@@ -153,6 +156,28 @@ def padd(p, q):
 
 
 padd.launches = 0
+
+
+def pdouble(p):
+    """Elementwise complete doubling of a point batch."""
+    if kernels.on_cpu(*p):
+        return _to32(pdouble_plain(_to64(p)))
+    dev = kernels.check_cuda(*p)
+    shape = p[0].shape
+    if shape[0] != FQ.L or any(c.shape != shape for c in p):
+        raise ValueError("pdouble: coordinates must share one (24, ...) shape")
+    p = tuple(c.contiguous() for c in p)
+    out = tuple(torch.empty_like(p[0]) for _ in range(3))
+    n = p[0][0].numel()
+    if n:
+        kernels.launch(
+            "bpt_g1_pdouble", *(kernels.ptr(c) for c in (*p, *out)), n, kernels.stream(dev)
+        )
+        pdouble.launches += 1
+    return out
+
+
+pdouble.launches = 0
 
 
 def tree_reduce(p):
@@ -198,7 +223,7 @@ def batch_normalize(p, plain: bool = False):
 def points_to_device(points, device):
     """list[host G1] -> (X, Y, Z) Montgomery (24, n); one host batch
     normalization, identity -> (0 : 1 : 0)."""
-    from baby_plonk_tpu.curves.g1 import G1
+    from ..curves.g1 import G1
 
     xs, ys, zs = [], [], []
     for aff in G1.batch_normalize(list(points)):
@@ -212,7 +237,7 @@ def points_to_device(points, device):
 def points_from_device(p) -> list:
     """(24, n) x3 projective Montgomery -> list[host G1] (exact), one host
     batch inversion."""
-    from baby_plonk_tpu.curves.g1 import G1
+    from ..curves.g1 import G1
 
     X, Y, Z = (FQ.unpack_mont(c.reshape(FQ.L, -1)) for c in p)
     idx = [i for i, z in enumerate(Z) if z]

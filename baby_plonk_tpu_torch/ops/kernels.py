@@ -29,10 +29,11 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("field.cu", "ntt.cu", "g1.cu", "msm_fixed.cu", "srs.cu")
+SOURCES = ("field.cu", "ntt.cu", "g1.cu", "msm.cu", "msm_fixed.cu", "srs.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, stack frame and spills of every kernel, kept by build()
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "bpt_field_select": [ctypes.c_int, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P],
     "bpt_ntt_sub": [_P, _P, _P, _I, _I, _I, _I, _P],
     "bpt_g1_padd": [_P] * 9 + [_I, _P],
+    "bpt_g1_pdouble": [_P] * 6 + [_I, _P],
+    "bpt_msm_bitserial": [_P] * 4 + [_I, ctypes.c_int] + [_P] * 4,
     "bpt_msm_build_tables": [_P, _P, _P, _I, _P, _P, _P, _P],
     "bpt_msm_normalize_tables": [_P, _P, _P, _I, _P],
     "bpt_msm_fixed": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
@@ -88,6 +91,8 @@ def build() -> str:
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+            with open(obj + ".ptxas.txt", "w") as f:
+                f.write(res.stderr)
 
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             list(pool.map(compile_one, zip(SOURCES, objs)))
@@ -100,6 +105,14 @@ def build() -> str:
             raise RuntimeError(f"nvcc link failed:\n{res.stderr}")
         os.replace(tmp, lib_path)
     return lib_path
+
+
+def resource_usage(source: str) -> str:
+    """What ``ptxas -v`` said when ``source`` (a name in SOURCES) was last
+    compiled: registers, stack frame and spill bytes per kernel."""
+    build()
+    with open(os.path.join(BUILD_DIR, source.replace(".cu", ".o") + ".ptxas.txt")) as f:
+        return f.read()
 
 
 def library():

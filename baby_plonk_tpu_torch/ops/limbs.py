@@ -25,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from baby_plonk_tpu.fields import fq, fr
+from ..fields import fq, fr
 
 from . import kernels
 

@@ -175,7 +175,7 @@ class FixedBaseTables:
 def tables_for_setup(setup, device) -> FixedBaseTables:
     """Per-setup, per-device cached tables over the SRS (chunk = the next
     power of two >= min(n, CHUNK), as ``msm_fixed.tables_for_setup``)."""
-    cache = setup.__dict__.setdefault("_torch_fb_tables", {})
+    cache = setup.fb_tables
     key = str(device)
     tabs = cache.get(key)
     if tabs is None:

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from baby_plonk_tpu.fields import fr
+from ..fields import fr
 
 from . import kernels, limbs
 

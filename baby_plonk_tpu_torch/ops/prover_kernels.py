@@ -21,8 +21,8 @@ import functools
 
 import torch
 
-from baby_plonk_tpu.fields import fr
-from baby_plonk_tpu.protocol.poly import Basis
+from ..fields import fr
+from ..protocol.poly import Basis
 
 from . import limbs
 from .dpoly import DPoly, _debug_asserts, pad_to, pow_table, scalar
@@ -75,16 +75,16 @@ def round3_quotient_device(
 ):
     """Inputs are monomial DPolys; returns the quotient t (3n+6 coefficients).
     ``pk_cache`` (the proving key) keeps the coset evaluations of the nine
-    proof-independent rows under ``_torch_coset_rows``."""
+    proof-independent rows in its ``coset_rows``."""
     m = 4 * n
     dev = a_c.vals.device
     zh_inv, gpow, ginvpow, dpow = _round3_consts(m, str(dev))
-    fixed = getattr(pk_cache, "_torch_coset_rows", None)
+    fixed = pk_cache.coset_rows if pk_cache is not None else None
     if fixed is None or fixed[0] != (m, str(dev)):
         rows = _coset_ntt([s1_c, s2_c, s3_c, ql_c, qr_c, qm_c, qo_c, qc_c, l1_c], m, gpow)
         fixed = ((m, str(dev)), rows)
         if pk_cache is not None:
-            pk_cache._torch_coset_rows = fixed
+            pk_cache.coset_rows = fixed
     s1E, s2E, s3E, qlE, qrE, qmE, qoE, qcE, l1E = fixed[1].unbind(1)
     aE, bE, cE, zE, piE = _coset_ntt([a_c, b_c, c_c, z_c, pi_c], m, gpow).unbind(1)
     # z(w x) on the coset: w = W^(m/n), so its evaluations are z's shifted

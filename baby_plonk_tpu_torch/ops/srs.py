@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from baby_plonk_tpu.fields import fr
+from ..fields import fr
 
 from . import g1_vec, kernels, limbs
 
@@ -53,7 +53,7 @@ powers_of_tau.launches = 0
 
 def generator_base(device) -> torch.Tensor:
     """(24, 3): the G1 generator's projective Montgomery X, Y, Z columns."""
-    from baby_plonk_tpu.curves.g1 import G1
+    from ..curves.g1 import G1
 
     return torch.cat(g1_vec.points_to_device([G1.generator()], device), dim=1)
 
@@ -74,11 +74,10 @@ def powers_of_tau_device(powers: int, tau: int, device):
 
 def setup_points(setup, device):
     """The setup's G1 powers on ``device`` as (24, n) x3 Montgomery
-    projective tensors, cached on it under ``_torch_points``: the device
-    SRS made by ``generate_srs_device``, or the host ``powers_of_x``
-    uploaded once. Never reaches ``Setup.commit``/``materialize_host``,
-    which import JAX."""
-    cache = setup.__dict__.setdefault("_torch_points", {})
+    projective tensors, cached in its ``device_points``: the device SRS
+    made by ``generate_srs_device``, or the host ``powers_of_x`` uploaded
+    once."""
+    cache = setup.device_points
     key = str(device)
     pts = cache.get(key)
     if pts is None:

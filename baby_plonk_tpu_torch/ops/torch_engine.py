@@ -7,19 +7,19 @@ launch of this package's CUDA kernels; ``TorchEngine("cpu")`` runs their
 plain PyTorch versions (the CPU tests). There is no fallback between the
 two: a CUDA engine without a card raises.
 
-Device state lives on the protocol objects under the port's own names:
-``Setup._torch_points`` (device SRS), ``Setup._torch_fb_tables``
-(commit tables), ``pk._torch_sigma_lagrange`` and ``pk._torch_coset_rows``
-(proving-key rows), each keyed by device.
+Device state lives on the protocol objects: ``Setup.device_points``
+(device SRS), ``Setup.fb_tables`` (commit tables), ``pk.sigma_lagrange``
+and ``pk.coset_rows`` (proving-key rows), each keyed by device.
 """
 from __future__ import annotations
 
 import torch
 
-from baby_plonk_tpu.fields import fr
-from baby_plonk_tpu.protocol.poly import Basis
+from ..fields import fr
+from ..protocol.poly import Basis
 
-from . import g1_vec, limbs
+from ..curves.g1 import G1
+from . import g1_vec, limbs, msm, srs
 from .dpoly import DPoly, eval_many, scalar
 from .limbs import FR
 from .msm_fixed import tables_for_setup
@@ -76,18 +76,52 @@ class TorchEngine:
 
     # -- KZG commit --------------------------------------------------------------
 
+    def _commit_arrays(self, setup, scalars_raw):
+        """Device MSMs of raw scalar limbs [(16, k_i)] against the SRS
+        prefixes, (24, P) x3: the fixed-base tables (cached per SRS, all
+        polys in one Horner launch) unless the config disables them, else
+        the first k_i SRS points through ``msm.msm_device_arrays``."""
+        from ..config import get_config
+
+        if get_config().commit_fixed_base:
+            return tables_for_setup(setup, self.device).msm_many(scalars_raw)
+        pts = srs.setup_points(setup, self.device)
+        outs = [
+            msm.msm_device_arrays(tuple(c[:, : s.shape[-1]] for c in pts), s)
+            for s in scalars_raw
+        ]
+        return tuple(torch.stack([o[k] for o in outs], dim=-1) for k in range(3))
+
     def commit(self, setup, polynomial):
         return self.commit_many(setup, [polynomial])[0]
 
     def commit_many(self, setup, polys):
-        """All commits of a round as one batched Horner launch and one host
-        transfer."""
-        scalars = []
-        for p in map(self._dpoly, polys):
+        """All commits of a round with one host transfer. A host ``Poly``
+        is trimmed of trailing zeros, and an all-zero one commits to the
+        identity without a launch."""
+        scalars, live = [], []
+        for i, p in enumerate(polys):
             assert p.basis == Basis.MONOMIAL
-            assert len(p) <= setup.srs_len(), f"polynomial length {len(p)} exceeds SRS size"
-            scalars.append(limbs.from_mont(FR, p.vals))
-        return g1_vec.points_from_device(tables_for_setup(setup, self.device).msm_many(scalars))
+            if isinstance(p, DPoly):
+                raw = limbs.from_mont(FR, p.vals.to(self.device))
+            else:
+                values = list(p.values)
+                while values and values[-1] == 0:
+                    values.pop()
+                if not values:
+                    continue
+                raw = FR.pack_raw(values, self.device)
+            assert raw.shape[-1] <= setup.srs_len(), (
+                f"polynomial length {raw.shape[-1]} exceeds SRS size"
+            )
+            scalars.append(raw)
+            live.append(i)
+        out = [G1.identity()] * len(polys)
+        if live:
+            pts = g1_vec.points_from_device(self._commit_arrays(setup, scalars))
+            for i, pt in zip(live, pts):
+                out[i] = pt
+        return out
 
     # -- evaluations and fused rounds --------------------------------------------
 
@@ -144,7 +178,7 @@ class TorchEngine:
         """Round 2 on the device: the prover's Lagrange DPolys in, (DPoly z,
         closing (16, 1) Montgomery) out; sigma columns packed once per pk."""
         n = len(a)
-        cache = pk.__dict__.setdefault("_torch_sigma_lagrange", {})
+        cache = pk.sigma_lagrange
         key = (str(self.device), n)
         sig = cache.get(key)
         if sig is None:

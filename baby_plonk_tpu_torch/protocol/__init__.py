@@ -1,13 +1,12 @@
-"""Protocol entry points of the port.
-
-The circuit front end, transcript, proof format and verifier are the
-shared, JAX-free host modules of ``baby_plonk_tpu`` (re-exported here);
-the device SRS and the prover are the port's own.
+"""Protocol layer of the port: circuit front end, transcript, proof format,
+setup, prover and verifier (host code of the port's own; the device work
+goes through ``ops.torch_engine.TorchEngine``).
 """
-from baby_plonk_tpu.circuits import mul_chain
-from baby_plonk_tpu.protocol.program import Program
-from baby_plonk_tpu.protocol.proof import Proof
-from baby_plonk_tpu.protocol.setup import Setup
-from baby_plonk_tpu.protocol.verifier import Verifier
+from ..circuits import mul_chain
+from .program import Program
+from .proof import Proof
+from .prover import Prover
+from .setup import Setup, generate_srs_device
+from .verifier import Verifier
 
-__all__ = ["Program", "Proof", "Setup", "Verifier", "mul_chain"]
+__all__ = ["Program", "Proof", "Prover", "Setup", "Verifier", "generate_srs_device", "mul_chain"]

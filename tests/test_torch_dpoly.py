@@ -1,12 +1,12 @@
 """Port device polynomials and the round-3/round-5 pipelines (plain CPU
-path) against the host Poly oracle of the shared protocol layer."""
+path) against the host Poly oracle of the port's protocol layer."""
 import pytest
 
-from baby_plonk_tpu.fields import fr
-from baby_plonk_tpu.protocol.poly import Basis, Poly
+from baby_plonk_tpu_torch.fields import fr
 from baby_plonk_tpu_torch.ops.dpoly import DPoly, eval_many
 from baby_plonk_tpu_torch.ops.prover_kernels import linear_combine_device
 from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+from baby_plonk_tpu_torch.protocol.poly import Basis, Poly
 
 from torch_port_util import field_ints, one_torch_thread  # noqa: F401  (fixture)
 

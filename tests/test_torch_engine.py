@@ -1,17 +1,16 @@
 """The port end to end at n = 8 on the CPU: byte-identical proofs with the
-host engine, the port's verifier engine accepts them and rejects a wrong
-public input; plus the engine's guards."""
+port's exact host engine, the port's verifier engine accepts them and
+rejects a wrong public input; plus the engine's guards. Tolerance: exact
+(integers and bytes)."""
 import pytest
 import torch
 
-from baby_plonk_tpu.ops.engine import HostEngine
-from baby_plonk_tpu.protocol.program import Program
-from baby_plonk_tpu.protocol.prover import Prover as HostProver
-from baby_plonk_tpu.protocol.setup import Setup
-from baby_plonk_tpu.protocol.verifier import Verifier
+from baby_plonk_tpu_torch.fields import fr
+from baby_plonk_tpu_torch.ops.engine import HostEngine
 from baby_plonk_tpu_torch.ops.srs import setup_points
 from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
-from baby_plonk_tpu_torch.protocol.prover import Prover
+from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, Verifier
+from baby_plonk_tpu_torch.protocol.poly import Basis, Poly
 
 from torch_port_util import field_ints, one_torch_thread  # noqa: F401  (fixture)
 
@@ -31,7 +30,7 @@ def proved():
 
 def test_proof_bytes_equal_host_engine(proved):
     setup, program, _, proof = proved
-    host = HostProver(setup, program, engine=HostEngine()).prove(WITNESS, blinding=BLINDING)
+    host = Prover(setup, program, engine=HostEngine()).prove(WITNESS, blinding=BLINDING)
     assert proof.to_bytes() == host.to_bytes()
 
 
@@ -42,8 +41,6 @@ def test_port_verifier_accepts_and_rejects(proved):
 
 
 def test_engine_contract_ops_match_host():
-    from baby_plonk_tpu.fields import fr
-
     engine, host = TorchEngine("cpu"), HostEngine()
     vals = field_ints(31, fr.Q, 16)
     assert engine.ntt(vals) == host.ntt(vals)
@@ -56,15 +53,15 @@ def test_engine_contract_ops_match_host():
 
 def test_engine_packs_host_polys():
     """Host Polys given to the engine are packed onto its device and take
-    the device path (commit, evaluation, linear combination)."""
-    from baby_plonk_tpu.fields import fr
-    from baby_plonk_tpu.protocol.poly import Basis, Poly
-
+    the device path (commit, evaluation, linear combination); an all-zero
+    polynomial commits to the identity."""
     setup = Setup.generate_srs(8 + 6, tau=101, cache=False)
     engine, host = TorchEngine("cpu"), HostEngine()
     p, q = (Poly(field_ints(40 + i, fr.Q, 8 - 3 * i), Basis.MONOMIAL) for i in range(2))
     zero = Poly([0], Basis.MONOMIAL)
-    assert engine.commit_many(setup, [p, q, zero]) == host.commit_many(setup, [p, q, zero])
+    got = engine.commit_many(setup, [p, q, zero])
+    assert got == host.commit_many(setup, [p, q, zero])
+    assert got[2].is_identity() and engine.commit(setup, zero).is_identity()
     assert engine.eval_polys([p, q], 77) == host.eval_polys([p, q], 77)
     got = engine.linear_combine([p, q], [3, 5], 7)
     assert got.values == host.linear_combine([p, q], [3, 5], 7).values
@@ -83,7 +80,11 @@ def test_setup_without_points_raises():
         setup_points(setup, "cpu")
 
 
-def test_default_engine_is_torch_cuda():
+def test_default_engine_is_torch_cuda(monkeypatch):
+    from baby_plonk_tpu_torch.ops import engine as engine_mod
+
+    monkeypatch.delenv("BPT_ENGINE", raising=False)
+    monkeypatch.setattr(engine_mod, "_default_engine", None)
     setup = Setup.generate_srs(8 + 6, tau=101, cache=False)
     program = Program.from_strs(CIRCUIT, 8)
     if torch.cuda.is_available():
@@ -95,11 +96,17 @@ def test_default_engine_is_torch_cuda():
 
 @pytest.mark.slow
 def test_proof_bytes_equal_tpu_engine():
-    """Byte equality with the JAX package's TpuEngine at n = 8."""
+    """Byte equality with the JAX package's TpuEngine at n = 8, each
+    package driven with its own objects."""
     from baby_plonk_tpu.ops.tpu_engine import TpuEngine
+    from baby_plonk_tpu.protocol.program import Program as JProgram
+    from baby_plonk_tpu.protocol.prover import Prover as JProver
+    from baby_plonk_tpu.protocol.setup import Setup as JSetup
 
     setup = Setup.generate_srs(8 + 6, tau=101, cache=False)
     program = Program.from_strs(CIRCUIT, 8)
     port = Prover(setup, program, engine=TorchEngine("cpu")).prove(WITNESS, blinding=BLINDING)
-    tpu = HostProver(setup, program, engine=TpuEngine()).prove(WITNESS, blinding=BLINDING)
+    jsetup = JSetup.generate_srs(8 + 6, tau=101, cache=False)
+    jprogram = JProgram.from_strs(CIRCUIT, 8)
+    tpu = JProver(jsetup, jprogram, engine=TpuEngine()).prove(WITNESS, blinding=BLINDING)
     assert port.to_bytes() == tpu.to_bytes()

@@ -4,12 +4,12 @@ host curve."""
 import jax
 import numpy as np
 
-from baby_plonk_tpu.curves.g1 import G1
 from baby_plonk_tpu.ops import g1_vec as jg1
 from baby_plonk_tpu_torch import convert
+from baby_plonk_tpu_torch.curves.g1 import G1
 from baby_plonk_tpu_torch.ops import g1_vec
 
-from torch_port_util import g1_points, one_torch_thread  # noqa: F401  (fixture)
+from torch_port_util import g1_points, jax_points, one_torch_thread  # noqa: F401  (fixture)
 
 
 def _same(port, jax_pts):
@@ -20,7 +20,7 @@ def _same(port, jax_pts):
 def test_point_formulas_match_jax():
     ps = g1_points(21, 6) + [G1.identity(), G1.generator()]
     qs = g1_points(22, 6) + [G1.generator(), G1.generator()]  # id + P and P + P
-    jp, jq = jg1.points_to_device(ps), jg1.points_to_device(qs)
+    jp, jq = jg1.points_to_device(jax_points(ps)), jg1.points_to_device(jax_points(qs))
     tp, tq = g1_vec.points_to_device(ps, "cpu"), g1_vec.points_to_device(qs, "cpu")
     _same(tp, jp)
     s = g1_vec.padd(tp, tq)

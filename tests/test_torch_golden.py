@@ -5,10 +5,8 @@ import os
 
 import pytest
 
-from baby_plonk_tpu.protocol.program import Program
-from baby_plonk_tpu.protocol.setup import Setup
 from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
-from baby_plonk_tpu_torch.protocol.prover import Prover
+from baby_plonk_tpu_torch.protocol import Program, Prover, Setup
 
 from torch_port_util import one_torch_thread  # noqa: F401  (fixture)
 

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from baby_plonk_tpu.fields import fr
-from baby_plonk_tpu_torch.ops import g1_vec, kernels, limbs, msm_fixed, ntt, srs
+from baby_plonk_tpu_torch.fields import fr
+from baby_plonk_tpu_torch.ops import g1_vec, kernels, limbs, msm, msm_fixed, msm_pippenger, ntt, srs
 
 from torch_port_util import field_ints
 
@@ -56,8 +56,7 @@ def test_prove_cpu_then_cuda_same_bytes(dev):
     """One program proved by the CPU engine, then by the CUDA engine (its
     proving key then holds CPU coefficient caches): equal proof bytes."""
     from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
-    from baby_plonk_tpu_torch.protocol import Program, Setup
-    from baby_plonk_tpu_torch.protocol.prover import Prover
+    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup
 
     setup = Setup.generate_srs(8 + 6, tau=101, cache=False)
     program = Program.from_strs(["e public", "c <== a * b + b", "e <== c * d"], 8)
@@ -82,3 +81,36 @@ def test_msm_and_srs(dev):
     assert g1_vec.points_from_device(red) == g1_vec.points_from_device(
         g1_vec.tree_reduce(tuple(c.cpu() for c in got)))
     np.testing.assert_equal(len(g1_vec.points_from_device(red)), 2)
+
+
+def test_msm_partials_and_pdouble(dev):
+    """The bit-serial tile kernel and the doubling launcher against their
+    plain versions, limb for limb; both MSM algorithms against the exact
+    host MSM (ragged n, a zero scalar, Q - 1)."""
+    from baby_plonk_tpu_torch.curves import msm_host
+
+    n = 96
+    pts = srs.powers_of_tau_device(n, 77, dev)
+    ints = field_ints(6, fr.Q, n)
+    ints[0], ints[1] = 0, fr.Q - 1
+    sc = limbs.FR.pack_raw(ints, dev)
+    for tile in (32, 8):
+        got = msm.msm_partials(pts, sc, tile=tile)
+        want = msm.msm_partials_plain(pts, sc, tile=tile)
+        assert got[0].shape == (24, n // tile)
+        assert all(torch.equal(g.long(), w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        msm.msm_partials(pts, sc, tile=64)  # 96 is no multiple of 64
+    dbl = g1_vec.pdouble(pts)
+    assert all(torch.equal(g.long(), w) for g, w in zip(dbl, g1_vec.pdouble_plain(g1_vec._to64(pts))))
+    # the shape the Pippenger window shift gives both launchers: one point, (24,) x3
+    one, other = (tuple(c[:, i].contiguous() for c in pts) for i in (3, 4))
+    assert all(torch.equal(g.long(), w) for g, w in zip(
+        g1_vec.pdouble(one), g1_vec.pdouble_plain(g1_vec._to64(one))))
+    assert all(torch.equal(g.long(), w) for g, w in zip(
+        g1_vec.padd(one, other), g1_vec.padd_plain(g1_vec._to64(one), g1_vec._to64(other))))
+    host = msm_host.msm(g1_vec.points_from_device(pts), ints)
+    padded = (tuple(torch.cat([c, c[:, :1].expand(24, 32)], -1) for c in pts),
+              torch.cat([sc, sc.new_zeros(16, 32)], -1))
+    assert g1_vec.point_from_device(msm.msm_bitserial(*padded)) == host
+    assert g1_vec.point_from_device(msm_pippenger.msm_pippenger(pts, sc, c=8)) == host

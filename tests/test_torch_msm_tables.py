@@ -7,12 +7,12 @@ from baby_plonk_tpu.ops import msm_fixed as jmf
 from baby_plonk_tpu_torch import convert
 from baby_plonk_tpu_torch.ops import g1_vec, msm_fixed
 
-from torch_port_util import g1_points, one_torch_thread  # noqa: F401  (fixture)
+from torch_port_util import g1_points, jax_points, one_torch_thread  # noqa: F401  (fixture)
 
 
 def test_build_tables_match_jax():
     pts = g1_points(11, 64)
-    jpts = jg1.points_to_device(pts)
+    jpts = jg1.points_to_device(jax_points(pts))
     tpts = g1_vec.points_to_device(pts, "cpu")
     # the same Montgomery limbs on both sides of the codec
     for j, t in zip(convert.srs_to_numpy(tpts), jpts):

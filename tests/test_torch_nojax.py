@@ -1,7 +1,8 @@
-"""The port runs without JAX: a child interpreter whose import system
-refuses ``jax`` imports the port and re-proves the frozen n = 8 fixture
-through its Prover and TorchEngine("cpu"); and no module of the port names
-jax or a JAX-importing module of the JAX package."""
+"""The port runs without JAX and without the JAX package: a child
+interpreter whose import system refuses ``jax`` and ``baby_plonk_tpu``
+imports the port, builds its ``Setup`` from the port and re-proves the
+frozen n = 8 fixture through its Prover and TorchEngine("cpu"); and no
+source of the port, nor ``chip_smoke.py``, imports either."""
 import os
 import re
 import subprocess
@@ -12,26 +13,31 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = r'''
 import importlib.abc, json, os, sys
 
-class NoJax(importlib.abc.MetaPathFinder):
+BLOCKED = ("jax", "jaxlib", "baby_plonk_tpu")
+
+class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax is blocked in this interpreter")
+        if name in BLOCKED or name.startswith(tuple(b + "." for b in BLOCKED)):
+            raise ImportError(name + " is blocked in this interpreter")
         return None
 
-sys.meta_path.insert(0, NoJax())
+sys.meta_path.insert(0, Blocker())
 import torch
 torch.set_num_threads(1)
 import baby_plonk_tpu_torch
+from baby_plonk_tpu_torch.ops.engine import HostEngine
 from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
-from baby_plonk_tpu_torch.protocol import Program, Setup
-from baby_plonk_tpu_torch.protocol.prover import Prover
+from baby_plonk_tpu_torch.protocol import Program, Proof, Prover, Setup, Verifier
 
 fix = json.load(open(os.path.join(sys.argv[1], "tests", "fixtures", "golden_proof.json")))
 setup = Setup.generate_srs(fix["group_order"] + 6, tau=fix["tau"], cache=False)
 program = Program.from_strs(fix["circuit"], fix["group_order"])
 proof = Prover(setup, program, engine=TorchEngine("cpu")).prove(fix["witness"], blinding=fix["blinding"])
 assert proof.to_bytes().hex() == fix["proof_hex"], "proof bytes differ"
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+public = fix["public"]
+assert Verifier(setup, program, Proof.from_bytes(proof.to_bytes()), engine=HostEngine()).verify(public)
+for b in BLOCKED:
+    assert not any(m == b or m.startswith(b + ".") for m in sys.modules), b
 print("NOJAX-OK")
 '''
 
@@ -46,31 +52,40 @@ def test_port_proves_with_jax_blocked():
     assert "NOJAX-OK" in res.stdout
 
 
-#: modules of the JAX package that import JAX when loaded
-JAX_MODULES = (
-    "limbs", "ntt", "g1_vec", "msm", "msm_fixed", "msm_pippenger", "srs", "dpoly",
-    "prover_kernels", "tpu_engine", "pallas_kernels",
+#: an import of jax, jaxlib or the JAX package (``baby_plonk_tpu`` not
+#: followed by ``_torch``), as a statement anywhere in a line
+BAD_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|baby_plonk_tpu)(?![\w])|"
+    r"^\s*import\s+.*[,\s](?:jax|jaxlib|baby_plonk_tpu)(?![\w])|"
+    r"(?:__import__|import_module)\(\s*['\"](?:jax|jaxlib|baby_plonk_tpu)['\".]",
+    re.M,
 )
 
 
-def test_port_sources_name_no_jax():
+def _port_sources():
     pkg = os.path.join(ROOT, "baby_plonk_tpu_torch")
-    bad = re.compile(
-        r"^\s*(import jax|from jax|import jaxlib|from jaxlib"
-        r"|from baby_plonk_tpu\.ops import .*\b(" + "|".join(JAX_MODULES) + r")\b"
-        r"|from baby_plonk_tpu\.ops\.(" + "|".join(JAX_MODULES) + r")\b"
-        r"|import baby_plonk_tpu\.ops\.(" + "|".join(JAX_MODULES) + r")\b)",
-        re.M,
-    )
-    found = []
     for dirpath, dirs, files in os.walk(pkg):
         if "build" in dirs:  # the kernels' build output, not sources
             dirs.remove("build")
         for name in files:
             if name.endswith(".py"):
-                path = os.path.join(dirpath, name)
-                found += [f"{path}: {m.group(0).strip()}" for m in bad.finditer(open(path).read())]
-    smoke = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    found += [f"chip_smoke.py: {line}" for line in smoke.splitlines()
-              if re.match(r"\s*(import|from) (jax|baby_plonk_tpu)\b(?!_torch)", line)]
+                yield os.path.join(dirpath, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_sources_name_no_jax():
+    found = []
+    for path in _port_sources():
+        with open(path) as f:
+            found += [f"{path}: {m.group(0).strip()}" for m in BAD_IMPORT.finditer(f.read())]
     assert not found, found
+
+
+def test_import_scan_catches_the_forms():
+    for line in ("import jax", "from jax import numpy", "    from baby_plonk_tpu.fields import fr",
+                 "import baby_plonk_tpu", "import os, jax", "from baby_plonk_tpu import config",
+                 "importlib.import_module('baby_plonk_tpu.config')"):
+        assert BAD_IMPORT.search(line), line
+    for line in ("from baby_plonk_tpu_torch.fields import fr", "import baby_plonk_tpu_torch",
+                 "# the JAX package: baby_plonk_tpu/ops/msm.py", "from ..fields import fr"):
+        assert not BAD_IMPORT.search(line), line

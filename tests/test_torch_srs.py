@@ -4,10 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from baby_plonk_tpu.ops import srs as jsrs
-from baby_plonk_tpu.protocol.setup import Setup
 from baby_plonk_tpu_torch import convert
 from baby_plonk_tpu_torch.ops import g1_vec, srs
-from baby_plonk_tpu_torch.protocol.setup import generate_srs_device
+from baby_plonk_tpu_torch.protocol.setup import Setup, generate_srs_device
 
 from torch_port_util import one_torch_thread  # noqa: F401  (fixture)
 
@@ -29,5 +28,7 @@ def test_generate_srs_device_setup():
     host = Setup.generate_srs(5, 777, cache=False)
     assert setup.powers_of_x is None and setup.srs_len() == 5
     assert setup.x_2 == host.x_2
-    (pts,) = setup._torch_points.values()
+    (pts,) = setup.device_points.values()
     assert g1_vec.points_from_device(pts) == host.powers_of_x
+    setup.materialize_host()
+    assert setup.powers_of_x == host.powers_of_x

@@ -22,8 +22,21 @@ def field_ints(seed: int, modulus: int, n: int) -> list[int]:
 
 
 def g1_points(seed: int, n: int) -> list:
-    """n host G1 points k_i G with k_i from a numpy seed."""
-    from baby_plonk_tpu.curves.g1 import G1
-    from baby_plonk_tpu.fields import fr
+    """n host G1 points k_i G (the port's G1) with k_i from a numpy seed."""
+    from baby_plonk_tpu_torch.curves.g1 import G1
+    from baby_plonk_tpu_torch.fields import fr
 
     return [G1.generator() * (k or 1) for k in field_ints(seed, fr.Q, n)]
+
+
+def affine(points) -> list:
+    """Affine (x, y) int pairs (None = identity) of G1 points of either
+    package: the canonical values the two packages are compared at."""
+    return [p.to_affine() for p in points]
+
+
+def jax_points(points) -> list:
+    """The JAX package's own G1 objects for points of the port."""
+    from baby_plonk_tpu.curves.g1 import G1
+
+    return [G1.identity() if a is None else G1.from_affine(*a) for a in affine(points)]
