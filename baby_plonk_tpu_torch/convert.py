@@ -10,7 +10,8 @@ uint16) numpy / jax arrays; the port keeps the same limb-major layouts as
 int32 tensors:
 
   * device SRS (px, py, pz): (24, n) x3
-  * fixed-base tables (tx, ty): (24, G, 256) x2
+  * fixed-base tables (tx, ty): (24, G, 256) x2 in the JAX package; the port
+    packs them entry-major, (G, 256, 24) 32-bit words (``tables_to_*``)
   * Fr value arrays: (16, ..., n)
 
 Protocol objects: an SRS as affine (x, y) int pairs or as its limb arrays,
@@ -47,11 +48,19 @@ def srs_to_numpy(points):
 
 
 def tables_to_torch(tables, device="cpu"):
-    return tuple(to_torch(c, device) for c in tables)
+    """The JAX package's fixed-base tables (tx, ty), (24, G, 256) x2 limb
+    arrays -> the port's packed tables, (G, 256, 24) int32 words."""
+    from .ops import msm_fixed
+
+    return msm_fixed.pack_tables(*(to_torch(c, device) for c in tables))
 
 
-def tables_to_numpy(tables):
-    return tuple(to_numpy(c) for c in tables)
+def tables_to_numpy(packed):
+    """The port's packed tables (G, 256, 24) -> the JAX package's layout,
+    (tx, ty) uint32 limb arrays (24, G, 256)."""
+    from .ops import msm_fixed
+
+    return tuple(to_numpy(c) for c in msm_fixed.unpack_tables(packed))
 
 
 # -- protocol objects -----------------------------------------------------------

@@ -1,5 +1,5 @@
-// Elementwise Fr / Fq field kernels: Montgomery multiply, add, sub, neg,
-// to/from Montgomery form, and lane select.
+// Elementwise Fr / Fq field kernels: Montgomery multiply and square, add,
+// sub, neg, to/from Montgomery form, and lane select.
 //
 // Replaces: mont_mul_pallas (baby_plonk_tpu/ops/pallas_kernels.py:43, a tiled
 // elementwise Montgomery product) and the XLA elementwise ops it stood beside
@@ -15,7 +15,7 @@
 //
 // Simple design: one thread per element in a grid-stride loop; each thread
 // repacks its element's 16-bit limbs into 32-bit words in registers, runs the
-// CIOS product fully unrolled, and writes the limbs back. Limb-major layout
+// carry chains of field.cuh, and writes the limbs back. Limb-major layout
 // makes every limb load coalesced across a warp. Broadcasting is an index map:
 // output element i reads operand element (i / div) % mod.
 #include "field.cuh"
@@ -24,7 +24,7 @@ using namespace bpt;
 
 namespace {
 
-enum Op { MUL = 0, ADD = 1, SUB = 2, NEG = 3, TO_MONT = 4, FROM_MONT = 5 };
+enum Op { MUL = 0, ADD = 1, SUB = 2, NEG = 3, TO_MONT = 4, FROM_MONT = 5, SQR = 6 };
 
 template <class F>
 __global__ void field_op_kernel(int op, const int32_t* __restrict__ a, int64_t a_div, int64_t a_mod,
@@ -55,10 +55,13 @@ __global__ void field_op_kernel(int op, const int32_t* __restrict__ a, int64_t a
         for (int k = 0; k < F::N; k++) y[k] = F::r2(k);
         mul<F>(r, x, y);
         break;
-      default:  // FROM_MONT
+      case FROM_MONT:
 #pragma unroll
         for (int k = 0; k < F::N; k++) y[k] = k == 0 ? 1u : 0u;
         mul<F>(r, x, y);
+        break;
+      default:  // SQR
+        sqr<F>(r, x);
         break;
     }
     store<F>(out + i, n, r);

@@ -1,10 +1,26 @@
-// Fr and Fq arithmetic for sm_90a: add, sub, neg and CIOS Montgomery
-// multiply over 32-bit words with 64-bit products, one template for both
-// fields.
+// Fr and Fq arithmetic for sm_90a: add, sub, neg, Montgomery product and
+// square over 32-bit words, one set of templates for both fields.
+//
+// Bound on this card: the integer multiply-add pipe, and before that the
+// latency of the chain. A product written as 64-bit C arithmetic
+// ((uint64_t)a * b + t + c) costs several instructions a word and one long
+// dependent chain; the card has multiply-adds that take and leave a carry
+// (mad.lo.cc / madc.hi.cc) and add-with-carry. So every operation here is
+// one inline-PTX carry chain from field_asm.cuh, which the build writes
+// from baby_plonk_tpu_torch/ops/field_asm.py (the even/odd-word split known
+// from the ZPrize MSM entries and sppark's mont_t: two independent chains a
+// row, no carry word between the partial products; the design and its
+// bounds are set out in that file). sqr forms the cross products once.
+//
+// Lazy reduction (Fq only): p < 2^381 leaves three bits in 12 words, and
+// R = 2^384 > 9.8 p. add_lazy leaves a sum of two canonical values
+// unreduced (< 2p); mul takes operands a < 4p, b < 2^384 with a b < R p and
+// returns the canonical product, so a sum may go straight into a product.
+// Everything else takes and returns canonical values (< p).
 //
 // Montgomery radix: R = 2^(32 N) = 2^(16 L), the radix of the JAX package
 // (baby_plonk_tpu/ops/limbs.py, R = 2^(16 L)), so a Montgomery value is the
-// same integer in both packages. Values are canonical (< p) in and out.
+// same integer in both packages.
 //
 // Memory layout (the port's tensors): an element batch is an int32 array
 // (L, n) of 16-bit limbs, limb-major; load/store repack two limbs into one
@@ -13,12 +29,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "field_asm.cuh"
+
 namespace bpt {
 
-// BLS12-381 scalar field r, 255 bits, 8 words.
-static __constant__ uint32_t FR_P[8] = {
-    0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
-    0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+// BLS12-381 scalar field r, 255 bits, 8 words (the modulus itself is an
+// immediate of the carry chains in field_asm.cuh).
 static __constant__ uint32_t FR_R2[8] = {
     0xf3f29c6du, 0xc999e990u, 0x87925c23u, 0x2b6cedcbu,
     0x7254398fu, 0x05d31496u, 0x9f59ff11u, 0x0748d9d9u};
@@ -30,10 +46,6 @@ static __constant__ uint32_t FR_PM2[8] = {
     0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
 
 // BLS12-381 base field p, 381 bits, 12 words.
-static __constant__ uint32_t FQ_P[12] = {
-    0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
-    0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
-    0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 static __constant__ uint32_t FQ_R2[12] = {
     0x1c341746u, 0xf4df1f34u, 0x09d104f1u, 0x0a76e6a6u,
     0x4c95b6d5u, 0x8de5476cu, 0x939d83c0u, 0x67eb88a9u,
@@ -50,21 +62,25 @@ static __constant__ uint32_t FQ_PM2[12] = {
 struct Fr {
   static constexpr int N = 8;         // 32-bit words
   static constexpr int L = 16;        // 16-bit limbs in memory
-  static constexpr uint32_t PINV = 0xffffffffu;  // -p^-1 mod 2^32
-  static __device__ __forceinline__ uint32_t p(int i) { return FR_P[i]; }
   static __device__ __forceinline__ uint32_t r2(int i) { return FR_R2[i]; }
   static __device__ __forceinline__ uint32_t one(int i) { return FR_ONE[i]; }
   static __device__ __forceinline__ uint32_t pm2(int i) { return FR_PM2[i]; }
+  static __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) { ptx::fr_mul(r, a, b); }
+  static __device__ __forceinline__ void sqr(uint32_t* r, const uint32_t* a) { ptx::fr_sqr(r, a); }
+  static __device__ __forceinline__ void add(uint32_t* r, const uint32_t* a, const uint32_t* b) { ptx::fr_add(r, a, b); }
+  static __device__ __forceinline__ void sub(uint32_t* r, const uint32_t* a, const uint32_t* b) { ptx::fr_sub(r, a, b); }
 };
 
 struct Fq {
   static constexpr int N = 12;
   static constexpr int L = 24;
-  static constexpr uint32_t PINV = 0xfffcfffdu;
-  static __device__ __forceinline__ uint32_t p(int i) { return FQ_P[i]; }
   static __device__ __forceinline__ uint32_t r2(int i) { return FQ_R2[i]; }
   static __device__ __forceinline__ uint32_t one(int i) { return FQ_ONE[i]; }
   static __device__ __forceinline__ uint32_t pm2(int i) { return FQ_PM2[i]; }
+  static __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) { ptx::fq_mul(r, a, b); }
+  static __device__ __forceinline__ void sqr(uint32_t* r, const uint32_t* a) { ptx::fq_sqr(r, a); }
+  static __device__ __forceinline__ void add(uint32_t* r, const uint32_t* a, const uint32_t* b) { ptx::fq_add(r, a, b); }
+  static __device__ __forceinline__ void sub(uint32_t* r, const uint32_t* a, const uint32_t* b) { ptx::fq_sub(r, a, b); }
 };
 
 // -- memory <-> registers ----------------------------------------------------
@@ -113,107 +129,41 @@ __device__ __forceinline__ bool is_zero(const uint32_t a[F::N]) {
 }
 
 // -- modular arithmetic ------------------------------------------------------
-
-// r = s - p if s >= p else s, for s < 2p held in N words (p < 2^(32N-1)).
-template <class F>
-__device__ __forceinline__ void reduce_once(uint32_t r[F::N], const uint32_t s[F::N]) {
-  uint32_t d[F::N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < F::N; i++) {
-    uint64_t t = (uint64_t)s[i] - F::p(i) - borrow;
-    d[i] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 32) & 1u;
-  }
-#pragma unroll
-  for (int i = 0; i < F::N; i++) r[i] = borrow ? s[i] : d[i];
-}
+// Results may alias operands: an asm statement reads every operand before
+// it writes a result.
 
 template <class F>
 __device__ __forceinline__ void add(uint32_t r[F::N], const uint32_t a[F::N], const uint32_t b[F::N]) {
-  uint32_t s[F::N];
-  uint32_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < F::N; i++) {
-    uint64_t t = (uint64_t)a[i] + b[i] + carry;
-    s[i] = (uint32_t)t;
-    carry = (uint32_t)(t >> 32);
-  }
-  reduce_once<F>(r, s);  // a + b < 2p < 2^(32N): no carry out
+  F::add(r, a, b);
+}
+
+// r = a + b, unreduced: < 2p for canonical a, b (fits: 2p < 2^382).
+__device__ __forceinline__ void add_lazy(uint32_t r[12], const uint32_t a[12], const uint32_t b[12]) {
+  ptx::fq_add_lazy(r, a, b);
 }
 
 template <class F>
 __device__ __forceinline__ void sub(uint32_t r[F::N], const uint32_t a[F::N], const uint32_t b[F::N]) {
-  uint32_t d[F::N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < F::N; i++) {
-    uint64_t t = (uint64_t)a[i] - b[i] - borrow;
-    d[i] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 32) & 1u;
-  }
-  // on borrow d = a - b + 2^(32N); adding p and dropping the carry gives a - b + p
-  uint32_t carry = 0;
-  const uint32_t mask = 0u - borrow;
-#pragma unroll
-  for (int i = 0; i < F::N; i++) {
-    uint64_t t = (uint64_t)d[i] + (F::p(i) & mask) + carry;
-    r[i] = (uint32_t)t;
-    carry = (uint32_t)(t >> 32);
-  }
+  F::sub(r, a, b);
 }
 
 template <class F>
 __device__ __forceinline__ void neg(uint32_t r[F::N], const uint32_t a[F::N]) {
-  uint32_t d[F::N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < F::N; i++) {
-    uint64_t t = (uint64_t)F::p(i) - a[i] - borrow;
-    d[i] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 32) & 1u;
-  }
-  const bool z = is_zero<F>(a);
-#pragma unroll
-  for (int i = 0; i < F::N; i++) r[i] = z ? 0u : d[i];
+  uint32_t z[F::N];
+  set_zero<F>(z);
+  F::sub(r, z, a);  // 0 - a borrows unless a = 0, and the borrow adds p
 }
 
-// CIOS Montgomery product r = a b R^-1 mod p (Koc et al., "Analyzing and
-// comparing Montgomery multiplication algorithms", 1996). Each word step
-// adds a[j] b[i] (64-bit product) into t, then one m = t0 * (-p^-1) mod 2^32
-// multiple of p shifts t down a word. t < 2p at the end.
+// Montgomery product r = a b R^-1 mod p, canonical.
 template <class F>
 __device__ __forceinline__ void mul(uint32_t r[F::N], const uint32_t a[F::N], const uint32_t b[F::N]) {
-  constexpr int N = F::N;
-  uint32_t t[N + 2];
-#pragma unroll
-  for (int i = 0; i < N + 2; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < N; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < N; j++) {
-      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[N] + c;
-    t[N] = (uint32_t)s;
-    t[N + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * F::PINV;
-    s = (uint64_t)m * F::p(0) + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < N; j++) {
-      s = (uint64_t)m * F::p(j) + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[N] + c;
-    t[N - 1] = (uint32_t)s;
-    t[N] = t[N + 1] + (uint32_t)(s >> 32);
-  }
-  reduce_once<F>(r, t);  // t < 2p < 2^(32N), so t[N] == 0
+  F::mul(r, a, b);
+}
+
+// Montgomery square r = a a R^-1 mod p of a canonical a.
+template <class F>
+__device__ __forceinline__ void sqr(uint32_t r[F::N], const uint32_t a[F::N]) {
+  F::sqr(r, a);
 }
 
 // r = a^(p-2) = a^-1 (Montgomery in and out; 0 -> 0), left-to-right.
@@ -223,8 +173,9 @@ __device__ __forceinline__ void inverse(uint32_t r[F::N], const uint32_t a[F::N]
   set_one<F>(acc);
   for (int w = F::N - 1; w >= 0; w--) {
     const uint32_t e = F::pm2(w);
+#pragma unroll 1
     for (int bit = 31; bit >= 0; bit--) {
-      mul<F>(acc, acc, acc);
+      sqr<F>(acc, acc);
       if ((e >> bit) & 1u) mul<F>(acc, acc, a);
     }
   }
@@ -234,9 +185,9 @@ __device__ __forceinline__ void inverse(uint32_t r[F::N], const uint32_t a[F::N]
 // r = 12 a (b3 of y^2 = x^3 + 4) by additions.
 template <class F>
 __device__ __forceinline__ void mul12(uint32_t r[F::N], const uint32_t a[F::N]) {
-  uint32_t a2[F::N], a4[F::N], a8[F::N];
-  add<F>(a2, a, a);
-  add<F>(a4, a2, a2);
+  uint32_t a4[F::N], a8[F::N];
+  add<F>(a4, a, a);
+  add<F>(a4, a4, a4);
   add<F>(a8, a4, a4);
   add<F>(r, a8, a4);
 }

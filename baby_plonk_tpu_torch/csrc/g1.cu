@@ -33,7 +33,7 @@ __global__ void g1_padd_kernel(const int32_t* __restrict__ x1, const int32_t* __
     G1P p, q;
     g1_load(p, x1, y1, z1, i, n);
     g1_load(q, x2, y2, z2, i, n);
-    g1_add(p, p, q);
+    g1_add(p, q);
     g1_store(x3, y3, z3, i, n, p);
   }
 }
@@ -45,7 +45,7 @@ __global__ void g1_pdouble_kernel(const int32_t* __restrict__ x1, const int32_t*
        i += (int64_t)gridDim.x * blockDim.x) {
     G1P p;
     g1_load(p, x1, y1, z1, i, n);
-    g1_double(p, p);
+    g1_double(p);
     g1_store(x3, y3, z3, i, n, p);
   }
 }

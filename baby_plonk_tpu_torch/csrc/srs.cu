@@ -30,9 +30,10 @@ __global__ void powers_of_tau_kernel(const int32_t* __restrict__ scalars, const 
   load<Fq>(b.x, base + 0, 3);
   load<Fq>(b.y, base + 1, 3);
   load<Fq>(b.z, base + 2, 3);
+#pragma unroll 1
   for (int bit = 0; bit < 255; bit++) {
-    if ((scalars[(bit >> 4) * n + i] >> (bit & 15)) & 1) g1_add(acc, acc, b);
-    g1_double(b, b);
+    if ((scalars[(bit >> 4) * n + i] >> (bit & 15)) & 1) g1_add(acc, b);
+    g1_double(b);
   }
   g1_store(ox, oy, oz, i, n, acc);
 }

@@ -1,7 +1,9 @@
 """The port's CUDA library, and the sub-NTT wrappers.
 
-Build: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one
-object each (all started together), then linked into one shared library
+Build: ``field_asm.header()`` (the inline-PTX carry chains of the field
+arithmetic) is written into the build directory, every ``csrc/*.cu`` is
+compiled by ``nvcc`` for ``sm_90a`` into one object each (all started
+together), then all are linked into one shared library
 with a plain C interface, loaded through ``ctypes``. The build happens at
 first use into ``baby_plonk_tpu_torch/build/`` (listed in ``.gitignore``),
 keyed by a hash of the sources, so a checkout builds itself. Nothing here
@@ -26,6 +28,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from . import field_asm
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -47,8 +51,9 @@ _SIGNATURES = {
     "bpt_g1_pdouble": [_P] * 6 + [_I, _P],
     "bpt_msm_bitserial": [_P] * 4 + [_I, ctypes.c_int] + [_P] * 4,
     "bpt_msm_build_tables": [_P, _P, _P, _I, _P, _P, _P, _P],
-    "bpt_msm_normalize_tables": [_P, _P, _P, _I, _P],
-    "bpt_msm_fixed": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "bpt_msm_normalize_tables": [_P, _P, _P, _I, _P, _P],
+    "bpt_msm_fixed": [_P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
+    "bpt_msm_join": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
     "bpt_powers_of_tau": [_P, _P, _I, _P, _P, _P, _P],
 }
 
@@ -56,7 +61,7 @@ _lib = None
 
 
 def _source_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + field_asm.header()).encode())
     for name in sorted(os.listdir(CSRC)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, name), "rb") as f:
@@ -84,10 +89,13 @@ def build() -> str:
         if os.path.exists(lib_path):
             return lib_path
         objs = [os.path.join(BUILD_DIR, s.replace(".cu", ".o")) for s in SOURCES]
+        # the carry chains that csrc/field.cuh includes
+        with open(os.path.join(BUILD_DIR, "field_asm.cuh"), "w") as f:
+            f.write(field_asm.header())
 
         def compile_one(src_obj):
             src, obj = src_obj
-            cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, src), "-o", obj]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", BUILD_DIR, "-c", os.path.join(CSRC, src), "-o", obj]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")

@@ -227,7 +227,7 @@ def _neg_plain(spec, a):
 # Dispatching wrappers
 # -----------------------------------------------------------------------------
 
-_OP_MUL, _OP_ADD, _OP_SUB, _OP_NEG, _OP_TO_MONT, _OP_FROM_MONT = range(6)
+_OP_MUL, _OP_ADD, _OP_SUB, _OP_NEG, _OP_TO_MONT, _OP_FROM_MONT, _OP_SQR = range(7)
 
 
 def _bcast(op_batch, out_batch):
@@ -283,6 +283,15 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if kernels.on_cpu(a, b):
         return _mont_mul_plain(spec, a, b).to(torch.int32)
     return _launch_op(mont_mul, spec, _OP_MUL, a, b)
+
+
+def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Montgomery square a * a * R^-1 mod p: the device's dedicated square
+    (csrc/field.cuh::sqr, which the point doubling and the table
+    normalization run), exposed so that it can be held against the product."""
+    if kernels.on_cpu(a):
+        return _mont_mul_plain(spec, a, a).to(torch.int32)
+    return _launch_op(mont_sqr, spec, _OP_SQR, a)
 
 
 def add_mod(spec: FieldSpec, a, b):
@@ -347,7 +356,7 @@ def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return out
 
 
-for _fn in (mont_mul, add_mod, sub_mod, neg_mod, to_mont, from_mont, select):
+for _fn in (mont_mul, mont_sqr, add_mod, sub_mod, neg_mod, to_mont, from_mont, select):
     _fn.launches = 0
 
 

@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and kernel checks)
+    python3 chip_smoke.py --msm-times  # phases 1-2, then only the two commit MSMs timed at
+                                     # the prove's shapes through entry points that every
+                                     # version of the package has (copy the script beside an
+                                     # older package to time that one on the same card)
 
 Phases, each printed with its seconds:
   1. device: name and power limit (nvidia-smi); no CUDA device -> exit 1
@@ -10,11 +14,15 @@ Phases, each printed with its seconds:
   3. kernels: every kernel of the paths below against its plain PyTorch
      version on the card, at the paths' shapes, exact equality (integers: no
      tolerance), timed beside the plain version, with the least time the
-     card could take for the same work (bound); the fixed-base, bit-serial
-     and Pippenger MSMs also against the exact host MSM
+     card could take for the same work (bound); the Fr and Fq product and
+     square on edge operands; the fixed-base, bit-serial and Pippenger MSMs
+     also against the exact host MSM. The two point-MSM kernels are exact at
+     one 2^14-point chunk and at a small ragged shape (their plain versions
+     take seconds a chunk) and timed at the shapes the proves give them
   4. main path: device SRS at 2^16 + 6 powers, a 2^16-gate multiply chain,
      a cold and a warm prove, verify, a wrong public input rejected; every
-     kernel of the path must have launched
+     kernel of the path must have launched; one more warm prove under
+     torch.profiler: device time by kernel name and the busy share
   5. cross-engine: at 2^8 gates with fixed blinding the proof bytes equal
      the host engine's
   6. variable-base path: the same 2^16 circuit and SRS with
@@ -41,11 +49,15 @@ TAU = 0x5EED_7A0
 #: multiply-add pipe has half those lanes.
 MEM_BYTES_PER_S = 3.35e12
 INT_MAD_PER_S = 67e12 / 2 / 2
-#: 32-bit multiply-adds of one CIOS Montgomery product over N words
-#: (csrc/field.cuh::mul): 2 N^2 + N
+#: 32-bit multiply-adds of one Montgomery product over N words
+#: (csrc/field.cuh::mul): 2 N^2 + N; of one square (cross products once):
+#: N (N + 1) / 2 + N^2 + N
 FR_MUL, FQ_MUL = 2 * 8 * 8 + 8, 2 * 12 * 12 + 12
-#: Fq products of the point formulas (csrc/g1.cuh)
+FQ_SQR = 12 * 13 // 2 + 12 * 12 + 12
+#: Fq products of the point formulas (csrc/g1.cuh); 2 of the doubling's 8
+#: are squares
 ADD_MULS, DOUBLE_MULS, MIXED_MULS = 12, 8, 11
+DOUBLE_MADS = 6 * FQ_MUL + 2 * FQ_SQR
 #: bytes of one Fr / Fq element in memory (16-bit limbs in int32)
 FR_BYTES, FQ_BYTES = 64, 96
 
@@ -124,18 +136,19 @@ def check_kernels(dev, results):
     rng = np.random.default_rng(SEED)
     FR, FQ = limbs.FR, limbs.FQ
 
-    def record(name, source, replaces, wrapper, err, ms, plain_ms, nbytes, mads, run=None):
+    def record(name, source, replaces, wrapper, err, ms, plain_ms, nbytes, mads, run=None, **extra):
         """``nbytes``: every input read once and every output written once;
         ``mads``: the 32-bit multiply-adds this run's inputs need. No single
         PyTorch call computes any of these modular functions: library_ms is
         null throughout. ``run``: the prove of phase 6 that gives the wrapper
-        this shape ("bitserial" or "pippenger"), None for the main path."""
+        this shape ("bitserial" or "pippenger"), None for the main path.
+        ``extra``: further keys of the row."""
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
         bound_ms, bound_by = bound(nbytes, mads)
         results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "wrapper": wrapper, "run": run, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, **extra})
         print(f"  {name}: exact, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4g} ms ({bound_by})", flush=True)
 
@@ -179,6 +192,21 @@ def check_kernels(dev, results):
     assert max_abs_err(limbs.select(cond, a, b), torch.where(cond[None], a, b)) == 0, "select"
     print("  neg_mod, select (off the main path): exact", flush=True)
 
+    # edge operands of the product and the dedicated square, both fields: a
+    # dropped carry shows on these, not on random operands
+    for spec in (FR, FQ):
+        p, R = spec.modulus, 1 << (16 * spec.L)
+        top = p >> (16 * spec.L - 32)
+        ones = ((top - 1) << (16 * spec.L - 32)) | ((1 << (16 * spec.L - 32)) - 1)
+        edge = [0, 1, p - 1, R % p, R * R % p, ones, (p - 1) ** 2 % p]
+        ea = spec.pack_raw([x for x in edge for _ in edge], dev)
+        eb = spec.pack_raw([y for _ in edge for y in edge], dev)
+        assert max_abs_err(limbs.mont_mul(spec, ea, eb), limbs._mont_mul_plain(spec, ea, eb)) == 0, "product, edge operands"
+        assert max_abs_err(limbs.mont_sqr(spec, ea), limbs._mont_mul_plain(spec, ea, ea)) == 0, "square, edge operands"
+        rnd = random_field(rng, spec, (n,), dev)
+        assert max_abs_err(limbs.mont_sqr(spec, rnd), limbs._mont_mul_plain(spec, rnd, rnd)) == 0, "square, 2^16 lanes"
+    print(f"  product and square on {len(edge)}^2 edge operands, square on 2^16 lanes (Fr, Fq): exact", flush=True)
+
     # -- sub-NTT (16, 1, 256, 256) and the four-step at the prove's sizes ------
     x = random_field(rng, FR, (1, 256, 256), dev)
     for inverse in (False, True):
@@ -219,38 +247,119 @@ def check_kernels(dev, results):
            cuda_ms(lambda: srs.powers_of_tau_plain(sc, base), 1, warm=False),
            (FR_BYTES + 3 * FQ_BYTES) * (1 << 10),
            # per lane 254 doublings and one addition per set bit
-           FQ_MUL * (DOUBLE_MULS * 254 * (1 << 10) + ADD_MULS * popcount(sc)))
+           DOUBLE_MADS * 254 * (1 << 10) + FQ_MUL * ADD_MULS * popcount(sc))
 
     # -- fixed-base MSM: one 2^14-point chunk ----------------------------------
     chunk = msm_fixed.CHUNK
     groups = chunk // msm_fixed.GROUP
     pm2 = FQ.modulus - 2
-    inv_muls = pm2.bit_length() + bin(pm2).count("1")
-    pts = srs.powers_of_tau(srs.tau_scalars(chunk, TAU, dev), base)
+    inv_mads = (pm2.bit_length() - 1) * FQ_SQR + (bin(pm2).count("1") - 1) * FQ_MUL
+    n_srs = (1 << 16) + 6
+    srs_pts = srs.powers_of_tau(srs.tau_scalars(n_srs, TAU, dev), base)
+    pts = tuple(c[:, :chunk].contiguous() for c in srs_pts)
     t_k = msm_fixed.build_tables(*pts)
     t_p = msm_fixed.build_tables_plain(*pts)
     record("msm_build_tables", "baby_plonk_tpu_torch/csrc/msm_fixed.cu",
            "baby_plonk_tpu/ops/msm_fixed.py:83", "msm_fixed.build_tables", max_abs_err(t_k, t_p),
            cuda_ms(lambda: msm_fixed.build_tables(*pts), 2),
            cuda_ms(lambda: msm_fixed.build_tables_plain(*pts), 1, warm=False),
-           3 * FQ_BYTES * chunk + 2 * FQ_BYTES * 256 * groups,
-           # per group 255 additions, and per entry a Fermat inversion
-           # (one squaring per bit of p - 2, one product per set bit) and 2 products
-           FQ_MUL * groups * (ADD_MULS * 255 + 256 * (inv_muls + 2)))
+           3 * FQ_BYTES * chunk + FQ_BYTES * 256 * groups,
+           # per group 255 additions, and per entry a Fermat inversion (a square
+           # per bit of p - 2, a product per set bit) and 2 products
+           groups * (FQ_MUL * ADD_MULS * 255 + 256 * (inv_mads + 2 * FQ_MUL)))
     del t_p
     scal = random_field(rng, FR, (1, chunk), dev)
-    tx, ty = t_k
-    nonzero_steps = sum(int((msm_fixed._table_index(scal, bit) != 0).sum())
-                        for bit in range(msm_fixed.NBITS))
+
+    def horner_work(sc, G, windows):
+        """(bytes, multiply-adds) of one Horner launch: tables of the G groups,
+        scalars and partials once; per lane and step a doubling, and a mixed
+        addition where this run's index is not 0."""
+        P = sc.shape[1]
+        nonzero = sum(int((msm_fixed._table_index(sc, bit) != 0).sum()) for bit in range(msm_fixed.NBITS))
+        steps = P * G * msm_fixed.window_bits(windows) * windows
+        return (FQ_BYTES * 256 * G + FR_BYTES * P * 8 * G + 3 * FQ_BYTES * P * windows * G,
+                DOUBLE_MADS * steps + FQ_MUL * MIXED_MULS * nonzero)
+
+    one_chunk = {
+        "err": max_abs_err(msm_fixed.msm_fixed_horner(t_k, scal, 1), msm_fixed.msm_fixed_plain(t_k, scal, 1)),
+        "ms": cuda_ms(lambda: msm_fixed.msm_fixed_horner(t_k, scal, 1), 5),
+        "plain_ms": cuda_ms(lambda: msm_fixed.msm_fixed_plain(t_k, scal, 1), 1, warm=False),
+        "bound_ms": bound(*horner_work(scal, groups, 1))[0],
+    }
+    assert one_chunk["err"] == 0, "msm_fixed_horner differs from its plain version on one chunk"
+    print(f"  msm_fixed_horner, one 2^14-point chunk, 1 set, W = 1: exact, kernel {one_chunk['ms']:.4f} ms, "
+          f"plain {one_chunk['plain_ms']:.1f} ms, bound {one_chunk['bound_ms']:.4g} ms", flush=True)
+    # a small ragged shape: 3 sets of 2^11 + 6 scalars, the launch sized to
+    # them (256 + 1 groups), each window split against the plain version
+    n_small = (1 << 11) + 6
+    small_tabs = msm_fixed.FixedBaseTables(tuple(c[:, :n_small].contiguous() for c in srs_pts), chunk=1 << 11)
+    small_sc = [random_field(rng, FR, (n_small - k,), dev) for k in (0, 2, 5)]
+    full, rest = small_tabs.launch_groups(n_small)
+    g_small = full * 256 + rest
+    sc3 = torch.zeros((16, 3, 8 * g_small), dtype=torch.int32, device=dev)
+    for i, sv in enumerate(small_sc):
+        sc3[:, i, : sv.shape[-1]] = sv
+    # (W = 1 is held at one chunk above: its plain version is 255 steps however few the lanes)
+    want = [g1_vec.point_from_device(msm.msm_bitserial(
+        tuple(c[:, : sv.shape[-1]].contiguous() for c in srs_pts), sv)) for sv in small_sc]
+    for windows in (1, 4, 16):
+        got = msm_fixed.msm_fixed_horner(small_tabs.tables(), sc3, windows)
+        assert got[0].shape == (24, 3, windows, g_small)
+        if windows > 1:
+            assert max_abs_err(got, msm_fixed.msm_fixed_plain(small_tabs.tables(), sc3, windows)) == 0, (
+                f"msm_fixed_horner differs from its plain version at W = {windows}")
+        commit = g1_vec.points_from_device(small_tabs.msm_many(small_sc, windows=windows))
+        assert commit == want, f"the commit at W = {windows} differs from the bit-serial MSM"
+    win = g1_vec.combine_partials(got)  # (24, 3, 16)
+    join_err = max_abs_err(msm_fixed.msm_join(win, 16), msm_fixed.msm_join_plain(win, 16))
+    join_plain_ms = cuda_ms(lambda: msm_fixed.msm_join_plain(win, 16), 1, warm=False)
+    print(f"  msm_fixed_horner, 3 sets of 2^11 + 6 scalars ({g_small} groups), W in 4, 16: exact; commits at W in "
+          "1, 4, 16 equal the bit-serial MSM's; msm_join (3 sets, 16 windows): exact", flush=True)
+    # the shapes the prove gives it: 3 sets and 1 set of 2^16 + 2 scalars over
+    # the tables of the 2^16 + 6-point SRS; each W timed (kernel, then join)
+    tabs = msm_fixed.FixedBaseTables(srs_pts)
+    tabs.tables()
+    n_sc = (1 << 16) + 2
+    full, rest = tabs.launch_groups(n_sc)
+    g_path = full * groups + rest
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    timed = {}
+    for P in (3, 1):
+        sets = [random_field(rng, FR, (n_sc,), dev) for _ in range(P)]
+        scp = torch.zeros((16, P, 8 * g_path), dtype=torch.int32, device=dev)
+        for i, sv in enumerate(sets):
+            scp[:, i, :n_sc] = sv
+        chosen = msm_fixed.windows_for(P * g_path, dev)
+        for windows in (1, 2, 4, 8, 16):
+            lanes = P * windows * g_path
+            k_ms = cuda_ms(lambda: msm_fixed.msm_fixed_horner(tabs.tables(), scp, windows), 3)
+            wsum = tuple(c[:, : P * windows].reshape(24, P, windows).contiguous() for c in pts)
+            j_ms = cuda_ms(lambda: msm_fixed.msm_join(wsum, msm_fixed.window_bits(windows)), 3) if windows > 1 else 0.0
+            c_ms = cuda_ms(lambda: tabs.msm_many(sets, windows=windows), 3)
+            timed[P, windows] = (k_ms, j_ms, c_ms)
+            print(f"  msm_fixed_horner, {P} x (2^16 + 2) scalars, {g_path} groups, W = {windows}"
+                  f"{' (chosen)' if windows == chosen else ''}: {lanes} lanes, {-(-lanes // 128)} blocks of 128 on "
+                  f"{sms} SMs, kernel {k_ms:.4f} ms, join {j_ms:.4f} ms, whole commit {c_ms:.4f} ms", flush=True)
+        if P == 3:
+            w3, sc_path3 = chosen, scp
+    nbytes, mads = horner_work(sc_path3, g_path, w3)
     record("msm_fixed_horner", "baby_plonk_tpu_torch/csrc/msm_fixed.cu",
            "baby_plonk_tpu/ops/pallas_kernels.py:242", "msm_fixed.msm_fixed_horner",
-           max_abs_err(msm_fixed.msm_fixed_horner(tx, ty, scal), msm_fixed.msm_fixed_plain(tx, ty, scal)),
-           cuda_ms(lambda: msm_fixed.msm_fixed_horner(tx, ty, scal), 5),
-           cuda_ms(lambda: msm_fixed.msm_fixed_plain(tx, ty, scal), 1, warm=False),
-           2 * FQ_BYTES * 256 * groups + FR_BYTES * chunk + 3 * FQ_BYTES * groups,
-           # per group lane 255 doublings and a mixed addition per step whose index is not 0
-           FQ_MUL * (DOUBLE_MULS * 255 * groups + MIXED_MULS * nonzero_steps))
-    parts = msm_fixed.msm_fixed_horner(tx, ty, scal)
+           one_chunk["err"], timed[3, w3][0], one_chunk["plain_ms"], nbytes, mads,
+           shape=f"3 x (2^16 + 2) scalars, {g_path} groups, W = {w3}", windows=w3,
+           join_ms=timed[3, w3][1], commit_ms=timed[3, w3][2],
+           ms_one_set=timed[1, msm_fixed.windows_for(g_path, dev)][0],
+           ms_one_chunk=one_chunk["ms"], bound_ms_one_chunk=one_chunk["bound_ms"],
+           plain_shape="one 2^14-point chunk, 1 set, W = 1")
+    s_w = msm_fixed.window_bits(w3)
+    record("msm_fixed_join", "baby_plonk_tpu_torch/csrc/msm_fixed.cu",
+           "baby_plonk_tpu/ops/pallas_kernels.py:242", "msm_fixed.msm_join", join_err,
+           timed[3, w3][1], join_plain_ms, 6 * FQ_BYTES * 3 * w3,
+           3 * (w3 - 1) * (DOUBLE_MADS * s_w + FQ_MUL * ADD_MULS),
+           shape=f"3 sets, {w3} windows of {s_w} bits", plain_shape="3 sets, 16 windows of 16 bits")
+    del tabs, small_tabs
+    tx = t_k
+    parts = tuple(c[:, :, 0] for c in msm_fixed.msm_fixed_horner(tx, scal, 1))
     halves = (tuple(c[..., : chunk // 16] for c in parts), tuple(c[..., chunk // 16 :] for c in parts))
     p_k = g1_vec.padd(*halves)
     p_p = g1_vec.padd_plain(*(tuple(c.to(torch.int64) for c in h) for h in halves))
@@ -287,25 +396,53 @@ def check_kernels(dev, results):
     assert got == msm_host.msm(host_pts, host_sc), "fixed-base MSM differs from the host MSM"
     print("  fixed-base MSM 2^10 == curves.msm_host.msm", flush=True)
 
-    # -- variable-base MSM: one 2^14-point chunk ---------------------------------
+    # -- variable-base MSM: one 2^14-point chunk, a ragged shape, the prove's ----
     sc1 = scal[:, 0].contiguous()
-    tiles = chunk // 256
-    record("msm_partials", "baby_plonk_tpu_torch/csrc/msm.cu",
-           "baby_plonk_tpu/ops/pallas_kernels.py:107", "msm.msm_partials",
-           max_abs_err(msm.msm_partials(pts, sc1), msm.msm_partials_plain(pts, sc1)),
-           cuda_ms(lambda: msm.msm_partials(pts, sc1), 3),
-           cuda_ms(lambda: msm.msm_partials_plain(pts, sc1), 1, warm=False),
-           (3 * FQ_BYTES + FR_BYTES) * chunk + 3 * FQ_BYTES * tiles,
-           # per lane 254 doublings and one addition per set bit, then the in-tile tree
-           FQ_MUL * (DOUBLE_MULS * 254 * chunk + ADD_MULS * (popcount(sc1) + chunk - tiles)),
-           run="bitserial")
-    # a chunk of zero scalars (4 of the 8 chunks of a padded 2^16-gate commit):
-    # the kernel runs the doublings and the tree, and no addition in the bit loop
+    tile = msm.TILE
+
+    def partials_work(sc, n):
+        """(bytes, multiply-adds): per lane 254 doublings and one addition
+        per set bit, then the in-tile tree."""
+        tiles = -(-n // tile)
+        return ((3 * FQ_BYTES + FR_BYTES) * n + 3 * FQ_BYTES * tiles,
+                DOUBLE_MADS * 254 * n + FQ_MUL * ADD_MULS * (popcount(sc) + tiles * (tile - 1)))
+
+    err = max_abs_err(msm.msm_partials(pts, sc1), msm.msm_partials_plain(pts, sc1))
+    chunk_ms = cuda_ms(lambda: msm.msm_partials(pts, sc1), 3)
+    chunk_plain_ms = cuda_ms(lambda: msm.msm_partials_plain(pts, sc1), 1, warm=False)
+    assert err == 0, "msm_partials differs from its plain version on one chunk"
+    # a chunk of zero scalars: the kernel runs the doublings and the tree, and
+    # no addition in the bit loop
     zeros = torch.zeros_like(sc1)
     assert max_abs_err(msm.msm_partials(pts, zeros), msm.msm_partials_plain(pts, zeros)) == 0, (
         "msm_partials differs from its plain version on zero scalars")
-    print(f"  msm_partials, 2^14-point chunk of zero scalars: exact, kernel "
-          f"{cuda_ms(lambda: msm.msm_partials(pts, zeros), 3):.4f} ms", flush=True)
+    # n no multiple of the tile: the last tile's lanes past n keep the identity
+    n_small = (1 << 11) + 6
+    rag = (tuple(c[:, :n_small].contiguous() for c in pts), sc1[:, :n_small].contiguous())
+    got = msm.msm_partials(*rag)
+    assert got[0].shape == (24, -(-n_small // tile))
+    assert max_abs_err(got, msm.msm_partials_plain(*rag)) == 0, (
+        "msm_partials differs from its plain version at n = 2^11 + 6")
+    print(f"  msm_partials, one 2^14-point chunk (tile {tile}): exact, kernel {chunk_ms:.4f} ms, plain "
+          f"{chunk_plain_ms:.1f} ms; zero scalars: exact, kernel "
+          f"{cuda_ms(lambda: msm.msm_partials(pts, zeros), 3):.4f} ms; n = 2^11 + 6: exact",
+          flush=True)
+    # the shape the bit-serial prove gives it: 65,538 points in one launch
+    n_path = (1 << 16) + 2
+    path_pts = tuple(c[:, :n_path].contiguous() for c in srs_pts)
+    path_sc = random_field(rng, FR, (n_path,), dev)
+    by_tile = {t: cuda_ms(lambda: msm.msm_partials(path_pts, path_sc, tile=t), 3) for t in (128, 256)}
+    print(f"  msm_partials, 65538 points in one launch: " + ", ".join(
+        f"tile {t}: {-(-n_path // t)} blocks, {ms:.4f} ms" for t, ms in by_tile.items())
+        + f"; whole MSM {cuda_ms(lambda: msm.msm_bitserial(path_pts, path_sc), 3):.4f} ms", flush=True)
+    nbytes, mads = partials_work(path_sc, n_path)
+    record("msm_partials", "baby_plonk_tpu_torch/csrc/msm.cu",
+           "baby_plonk_tpu/ops/pallas_kernels.py:107", "msm.msm_partials", err,
+           by_tile[tile], chunk_plain_ms, nbytes, mads, run="bitserial",
+           shape=f"65538 points, tile {tile}, one launch", ms_one_chunk=chunk_ms,
+           bound_ms_one_chunk=bound(*partials_work(sc1, chunk))[0],
+           plain_shape="one 2^14-point chunk")
+    del path_pts, srs_pts
     # the doubling's only shape on any path: the Pippenger running total, one
     # point of shape (24,), doubled c times per window
     pt1 = tuple(c[:, 1].contiguous() for c in pts)
@@ -314,7 +451,7 @@ def check_kernels(dev, results):
     record("g1_pdouble", "baby_plonk_tpu_torch/csrc/g1.cu", "baby_plonk_tpu/ops/g1_vec.py:165",
            "g1_vec.pdouble", max_abs_err(g1_vec.pdouble(pt1), g1_vec.pdouble_plain(pt64)),
            cuda_ms(lambda: g1_vec.pdouble(pt1), 100), cuda_ms(lambda: g1_vec.pdouble_plain(pt64), 5),
-           6 * FQ_BYTES, FQ_MUL * DOUBLE_MULS, run="pippenger")
+           6 * FQ_BYTES, DOUBLE_MADS, run="pippenger")
     # both variable-base algorithms at 2^10 against the exact host oracle, and
     # one 2^14-point Pippenger MSM timed beside the bit-serial chunk
     want = msm_host.msm(host_pts, host_sc)
@@ -327,6 +464,42 @@ def check_kernels(dev, results):
     print(f"  one 2^14-point MSM: bit-serial {cuda_ms(lambda: msm.msm_bitserial(pts, sc1), 2):.3f} ms, "
           f"Pippenger (c = {msm_pippenger.window_c(chunk)}) "
           f"{cuda_ms(lambda: msm_pippenger.msm_pippenger(pts, sc1), 2):.3f} ms (equal points)", flush=True)
+
+
+def msm_times(dev):
+    """The commit MSMs at the shapes a 2^16-gate prove gives them: 3 sets and
+    1 set of 2^16 + 2 scalars through ``FixedBaseTables.msm_many`` over the
+    2^16 + 6-point SRS, and 65,538 points through ``msm.msm_device_arrays``
+    (bit-serial), with the launches each makes."""
+    import numpy as np
+    import torch
+
+    from baby_plonk_tpu_torch import config
+    from baby_plonk_tpu_torch.ops import g1_vec, limbs, msm, msm_fixed, srs
+
+    rng = np.random.default_rng(SEED)
+    n_sc = (1 << 16) + 2
+    pts = srs.powers_of_tau(srs.tau_scalars(n_sc + 4, TAU, dev), srs.generator_base(dev))
+    tabs = msm_fixed.FixedBaseTables(pts)
+    out = {}
+    for P in (3, 1):
+        sets = [random_field(rng, limbs.FR, (n_sc,), dev) for _ in range(P)]
+        tabs.msm_many(sets)
+        before = msm_fixed.msm_fixed_horner.launches
+        out[f"fixed_base_commit_{P}_sets_ms"] = cuda_ms(lambda: tabs.msm_many(sets), 5)
+        out[f"fixed_base_commit_{P}_sets_horner_launches"] = (msm_fixed.msm_fixed_horner.launches - before) // 6
+    prev = config.get_config()
+    config.set_config(config.Config(commit_fixed_base=False, msm_algorithm="bitserial"))
+    try:
+        vpts, vsc = tuple(c[:, :n_sc].contiguous() for c in pts), sets[0]
+        before = msm.msm_partials.launches
+        out["bitserial_commit_ms"] = cuda_ms(lambda: msm.msm_device_arrays(vpts, vsc), 3)
+        out["bitserial_commit_partials_launches"] = (msm.msm_partials.launches - before) // 4
+        got = g1_vec.point_from_device(msm.msm_device_arrays(vpts, vsc))
+    finally:
+        config.set_config(prev)
+    assert got == g1_vec.point_from_device(tabs.msm(vsc)), "bit-serial and fixed-base commits differ"
+    print(json.dumps({"msm_times": out}), flush=True)
 
 
 def counts(counters):
@@ -362,11 +535,14 @@ def main_path(dev, n, counters):
     cold = time.perf_counter() - t
     phase("main: cold prove", t)
     before = counts(counters)
+    lanes_before = counters["msm_fixed.msm_fixed_horner"].lanes
     t = time.perf_counter()
     proof = Prover(setup, program, engine).prove(witness)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t
     phase("main: warm prove", t)
+    # 9 polynomials of 2^16 + 2..6 coefficients = 8193 groups each, times the windows
+    print(f"  Horner lanes in the warm prove: {counters['msm_fixed.msm_fixed_horner'].lanes - lanes_before}", flush=True)
     warm_counts = {k: v - before[k] for k, v in counts(counters).items()}
     t = time.perf_counter()
     ok = Verifier(setup, program, proof, engine=engine).verify(public)
@@ -378,7 +554,46 @@ def main_path(dev, n, counters):
     assert not Verifier(setup, program, proof, engine=engine).verify(wrong), "wrong public accepted"
     print("  wrong public input rejected", flush=True)
     print(f"  seconds: cold prove {cold:.3f}, warm prove {warm:.3f}, verify {verify_s:.3f}", flush=True)
-    return counts(counters), warm_counts, (setup, program, witness, public)
+    run_counts = counts(counters)
+    profile_prove(lambda: Prover(setup, program, engine).prove(witness), warm)
+    return run_counts, warm_counts, (setup, program, witness, public)
+
+
+def profile_prove(prove, warm_s):
+    """One warm prove under torch.profiler: device time by kernel name, and
+    the busy share, the device time over the ``warm_s`` seconds that the
+    warm prove took without the profiler (tracing slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from baby_plonk_tpu_torch.utils.metrics import get_metrics
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # starts the tracer
+        torch.zeros(1, device="cuda").sum().item()
+    get_metrics().reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prove()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    from torch.autograd import DeviceType
+
+    def device_us(e):  # the attribute's name before and after torch 2.4
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # kernel and copy rows only: a CPU operator's row repeats its kernels' time
+    rows = [(e.key, e.count, device_us(e) / 1e3) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in rows)
+    assert device_ms > 0, "torch.profiler recorded no device time"
+    print(f"  profiled warm prove: device {device_ms:.1f} ms, busy share {device_ms / (warm_s * 1e3):.3f} of the "
+          f"{warm_s * 1e3:.1f} ms warm prove (wall with the profiler on: {wall_ms:.1f} ms); "
+          f"spans: {get_metrics().report()}", flush=True)
+    for name, count, ms in rows[:12]:
+        print(f"    {ms:9.3f} ms  {count:5d} x  {name[:90]}", flush=True)
+    rest = rows[12:]
+    print(f"    {sum(r[2] for r in rest):9.3f} ms  {sum(r[1] for r in rest):5d} x  ({len(rest)} other kernels)", flush=True)
 
 
 def variable_base_path(dev, counters, circuit):
@@ -418,7 +633,8 @@ def variable_base_path(dev, counters, circuit):
                     f"{label}: the 2^16 proof does not verify")
     finally:
         config.set_config(prev)
-    assert run_counts["bitserial"]["msm.msm_partials"] > 0, "msm_partials did not launch in the bit-serial prove"
+    assert run_counts["bitserial"]["msm.msm_partials"] == 9, (
+        "the bit-serial prove is 9 commits, one msm_partials launch each")
     assert run_counts["pippenger"]["g1_vec.pdouble"] > 0, "g1_pdouble did not launch in the Pippenger prove"
     assert run_counts["pippenger"]["msm.msm_partials"] == 0, "the bit-serial kernel launched in the Pippenger prove"
     assert proofs["bitserial"] == proofs["pippenger"] == proofs["fixed"], (
@@ -467,11 +683,17 @@ def main():
 
     t = time.perf_counter()
     kernels.library()
-    for line in kernels.resource_usage("msm.cu").splitlines():
-        if "Compiling entry" in line or "stack frame" in line or "Used" in line:
-            print(f"  ptxas, msm.cu: {line.strip()}", flush=True)
+    for source in ("msm.cu", "msm_fixed.cu"):
+        for line in kernels.resource_usage(source).splitlines():
+            if "Compiling entry" in line or "stack frame" in line or "Used" in line:
+                print(f"  ptxas, {source}: {line.strip()}", flush=True)
     print(f"  native Keccak (transcript hashing) loaded: {native.available()}", flush=True)
     phase("2 build", t)
+
+    if "--msm-times" in sys.argv:
+        msm_times(dev)
+        print(f"card: {card}", flush=True)
+        return
 
     # 3. kernels
     t = time.perf_counter()
@@ -490,6 +712,7 @@ def main():
         "kernels.ntt_sub_4step": kernels.ntt_sub_4step, "g1_vec.padd": g1_vec.padd,
         "msm_fixed.build_tables": msm_fixed.build_tables,
         "msm_fixed.msm_fixed_horner": msm_fixed.msm_fixed_horner,
+        "msm_fixed.msm_join": msm_fixed.msm_join,
         "srs.powers_of_tau": srs.powers_of_tau,
         "msm.msm_partials": msm.msm_partials, "g1_vec.pdouble": g1_vec.pdouble,
     }
@@ -501,6 +724,7 @@ def main():
     print(f"  launches, warm prove: {json.dumps(warm_counts)}", flush=True)
     for key in ("limbs.mont_mul", "kernels.ntt_sub", "kernels.ntt_sub_4step", "msm_fixed.msm_fixed_horner"):
         assert warm_counts[key] > 0, f"{key} did not launch in the warm prove"
+    assert warm_counts["msm_fixed.msm_fixed_horner"] == 4, "a warm prove is 4 commit rounds, one Horner launch each"
     for key, count in run_counts.items():
         assert (count > 0) != (key in variable_only), f"{key}: {count} launches on the main path"
     phase("4 main path", t)

@@ -92,8 +92,11 @@ def test_broadcast_patterns():
 
 
 def test_cuda_constants_match_fields():
-    """The word constants written into csrc/field.cuh are the moduli,
-    Montgomery R^2 and 1, -p^-1 mod 2^32 and p - 2."""
+    """The word constants written into csrc/field.cuh are Montgomery R^2
+    and 1 and p - 2; the moduli and -p^-1 mod 2^32 are immediates of the
+    carry chains that ops/field_asm.py writes for it."""
+    from baby_plonk_tpu_torch.ops import field_asm
+
     path = os.path.join(os.path.dirname(tl.__file__), "..", "csrc", "field.cuh")
     src = open(path).read()
 
@@ -103,9 +106,12 @@ def test_cuda_constants_match_fields():
 
     for tag, p, n in (("FR", fr.Q, 8), ("FQ", fq.P, 12)):
         R = (1 << (32 * n)) % p
-        assert words(tag + "_P") == p
         assert words(tag + "_R2") == R * R % p
         assert words(tag + "_ONE") == R
         assert words(tag + "_PM2") == p - 2
-    pinvs = re.findall(r"PINV = (0x[0-9a-f]+)u", src)
-    assert [int(x, 16) for x in pinvs] == [(-pow(p, -1, 1 << 32)) % (1 << 32) for p in (fr.Q, fq.P)]
+        # the reduction rows: m = x0 * (-p^-1), then one multiply-add per word of p
+        mul = field_asm.functions()[tag.lower() + "_mul"][0]
+        pinv = (-pow(p, -1, 1 << 32)) % (1 << 32)
+        assert {srcs[1] for op, _, srcs in mul.lines if op == "mul.lo.u32" and isinstance(srcs[1], int)} == {pinv}
+        used = {srcs[0] for op, _, srcs in mul.lines if op.startswith("mad") and isinstance(srcs[0], int)}
+        assert used == set(field_asm.words(p, n))

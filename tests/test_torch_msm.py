@@ -43,9 +43,10 @@ def test_msm_device_arrays_matches_jax_and_host(n):
 
 
 def test_chunked_msm_matches_jax_and_host(monkeypatch):
-    """n = 10 pads to 16 and runs 4 chunks of 4 in both packages."""
-    monkeypatch.setattr(msm, "CHUNK", 4)
+    """n = 10: the JAX package pads to 16 and runs 4 chunks of 4; the port
+    runs one launch over the 10 points (here 3 tiles of 4, the last ragged)."""
     monkeypatch.setattr(jmsm, "CHUNK", 4)
+    monkeypatch.setattr(msm, "TILE", 4)
     pts, scalars, tpts, tsc = _inputs(70, 10)
     got = g1_vec.point_from_device(msm.msm_device_arrays(tpts, tsc))
     assert got == msm_host.msm(pts, scalars)
@@ -77,10 +78,27 @@ def test_zero_scalars_and_empty():
     assert msm.msm(pts, [1, 0, 0, fr.Q - 1], "cpu") == pts[0] - pts[3]
 
 
-def test_partials_reject_ragged_tile():
+@pytest.mark.parametrize("n", [5, 17, 40])
+def test_partials_ragged_n_matches_jax_and_host(n):
+    """n no multiple of the tile of 8: the last tile's missing lanes add the
+    identity; each partial is the host MSM of its tile."""
+    pts, scalars, tpts, tsc = _inputs(95 + n, n)
+    part = msm.msm_partials(tpts, tsc, tile=8)
+    tiles = -(-n // 8)
+    assert part[0].shape == (24, tiles) and part[0].dtype == torch.int32
+    assert g1_vec.points_from_device(part) == [
+        msm_host.msm(pts[i : i + 8], scalars[i : i + 8]) for i in range(0, n, 8)
+    ]
+    got = g1_vec.point_from_device(msm.msm_bitserial(tpts, tsc, tile=8))
+    assert got == msm_host.msm(pts, scalars)
+    assert got.to_affine() == _jax_msm(tpts, tsc)
+
+
+def test_partials_reject_bad_tile():
     _, _, tpts, tsc = _inputs(95, 6)
-    with pytest.raises(ValueError):
-        msm.msm_partials(tpts, tsc, tile=4)
+    for tile in (6, 512, 0):
+        with pytest.raises(ValueError):
+            msm.msm_partials(tpts, tsc, tile=tile)
 
 
 @pytest.mark.slow

@@ -1,8 +1,12 @@
 """Port fixed-base MSM (plain CPU path) against the JAX package's
 _msm_fixed_kernel_oh and the exact host MSM on the same points and
-scalars."""
+scalars: the unsplit Horner loop, the window split with its join, and
+scalar sets that end inside a group and inside a chunk. Tolerance: exact
+(integers; the packages are compared as affine points)."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from baby_plonk_tpu.ops import g1_vec as jg1
 from baby_plonk_tpu.ops import msm_fixed as jmf
@@ -15,19 +19,56 @@ from baby_plonk_tpu_torch.ops.limbs import FR
 from torch_port_util import field_ints, g1_points, one_torch_thread  # noqa: F401  (fixture)
 
 
-def test_msm_matches_jax_onehot_and_host():
+@pytest.fixture(scope="module")
+def tables64():
+    """64 points, their scalars (a zero and a one among them), the port's
+    tables over one chunk, and the JAX commit kernel's point on those tables."""
     pts = g1_points(12, 64)
     scalars = field_ints(13, fr.Q, 64)
     scalars[0], scalars[9] = 0, 1
     tabs = msm_fixed.FixedBaseTables(g1_vec.points_to_device(pts, "cpu"), chunk=64)
-    got = g1_vec.point_from_device(tabs.msm(FR.pack_raw(scalars, "cpu")))
-    assert got == msm_host.msm(pts, scalars)
-    # the JAX default commit kernel on the port's own tables
     tx, ty = (jnp.asarray(t) for t in convert.tables_to_numpy(tabs.tables()))
     t_oh = jnp.swapaxes(jnp.concatenate([tx, ty], axis=0), 1, 2)  # (48, 256, G)
     want = jmf._msm_fixed_kernel_oh(t_oh, jnp.asarray(np.asarray(
         [[s >> (16 * i) & 0xFFFF for s in scalars] for i in range(16)], dtype=np.uint32)))
-    assert jg1.point_from_device(want).to_affine() == got.to_affine()
+    return pts, scalars, tabs, jg1.point_from_device(want).to_affine()
+
+
+def test_msm_matches_jax_onehot_and_host(tables64):
+    pts, scalars, tabs, jax_affine = tables64
+    got = g1_vec.point_from_device(tabs.msm(FR.pack_raw(scalars, "cpu")))
+    assert got == msm_host.msm(pts, scalars)
+    # the JAX default commit kernel on the port's own tables
+    assert jax_affine == got.to_affine()
+
+
+@pytest.mark.parametrize("windows", [1, 3, 5])
+def test_window_split_matches_jax_onehot_and_host(tables64, windows):
+    """255 bits in W windows of ceil(255 / W) bits (the top one shorter),
+    joined by the Horner over the windows."""
+    pts, scalars, tabs, jax_affine = tables64
+    sc = FR.pack_raw(scalars, "cpu")
+    got = g1_vec.point_from_device(tabs.msm(sc, windows=windows))
+    assert got == msm_host.msm(pts, scalars)
+    assert got.to_affine() == jax_affine
+    part = msm_fixed.msm_fixed_horner(tabs.tables(), sc.reshape(16, 1, 64), windows)
+    assert part[0].shape == (24, 1, windows, 8)
+    # window w of group g alone is the host MSM of the group's scalars' bits [w S, (w + 1) S)
+    S = msm_fixed.window_bits(windows)
+    w, g = windows - 1, 5
+    lane = g1_vec.points_from_device(tuple(c[:, 0, w, g].reshape(24, 1) for c in part))[0]
+    cut = [(s >> (w * S)) & ((1 << S) - 1) for s in scalars[8 * g : 8 * g + 8]]
+    assert lane == msm_host.msm(pts[8 * g : 8 * g + 8], cut)
+
+
+def test_join_plain_is_the_horner_over_windows():
+    pts = g1_points(31, 6)
+    win = tuple(c.reshape(24, 2, 3) for c in g1_vec.points_to_device(pts, "cpu"))
+    out = g1_vec.points_from_device(msm_fixed.msm_join(win, 4))
+    assert out == [pts[0] + pts[1] * 16 + pts[2] * 256, pts[3] + pts[4] * 16 + pts[5] * 256]
+    assert msm_fixed.windows_for(3 * 8193, "cpu") == 1
+    with pytest.raises(ValueError):
+        msm_fixed.window_bits(0)
 
 
 def test_msm_many_chunks_and_prefixes():
@@ -38,3 +79,28 @@ def test_msm_many_chunks_and_prefixes():
     sets = [field_ints(15 + k, fr.Q, k) for k in (40, 17, 1)]
     out = tabs.msm_many([FR.pack_raw(s, "cpu") for s in sets])
     assert g1_vec.points_from_device(out) == [msm_host.msm(pts[: len(s)], s) for s in sets]
+
+
+@pytest.mark.parametrize("k, groups", [(1, 1), (13, 2), (32, 4), (35, 5), (49, 8), (56, 8)])
+def test_launch_is_sized_to_the_scalars(k, groups):
+    """Scalar sets that end inside a group (13, 35), on the chunk's edge (32)
+    and inside the second chunk (35, 49): the launch covers the whole chunks
+    (4 groups each) and the rest rounded up to a power of two of groups (49
+    scalars: 3 -> 4), no more; with and without the window split."""
+    pts = g1_points(14, 56)
+    tabs = msm_fixed.FixedBaseTables(g1_vec.points_to_device(pts, "cpu"), chunk=32)
+    full, rest = tabs.launch_groups(k)
+    assert full * 4 + rest == groups
+    assert tabs.tables().shape == (8, 256, 24)  # 56 points: a chunk of 4 groups and a rest of 3 -> 4
+    scalars = field_ints(40 + k, fr.Q, k)
+    want = msm_host.msm(pts[:k], scalars)
+    seen = []
+    real = msm_fixed.msm_fixed_horner
+    try:
+        msm_fixed.msm_fixed_horner = lambda t, sc, w: seen.append(sc.shape) or real(t, sc, w)
+        for windows in (1, 2):
+            got = tabs.msm(FR.pack_raw(scalars, "cpu"), windows=windows)
+            assert g1_vec.point_from_device(got) == want
+    finally:
+        msm_fixed.msm_fixed_horner = real
+    assert seen == [torch.Size((16, 1, 8 * groups))] * 2

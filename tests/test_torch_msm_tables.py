@@ -1,6 +1,9 @@
 """Port fixed-base table build (plain CPU path) against the JAX package's
-msm_fixed._build_tables on the same 64 points, compared as affine points."""
+msm_fixed._build_tables on the same 64 points: the port's packed tables
+(G, 256, 24), brought back to the JAX layout by convert.tables_to_numpy,
+equal it limb for limb."""
 import numpy as np
+import torch
 
 from baby_plonk_tpu.ops import g1_vec as jg1
 from baby_plonk_tpu.ops import msm_fixed as jmf
@@ -19,10 +22,27 @@ def test_build_tables_match_jax():
         assert np.array_equal(j, np.asarray(t))
     want = tuple(np.asarray(t) for t in jmf._build_tables(*jpts))  # (24, 8, 256) x2
     got = msm_fixed.build_tables(*convert.srs_to_torch([np.asarray(c) for c in jpts]))
-    assert got[0].shape == (24, 8, 256)
+    assert got.shape == (8, 256, 24) and got.dtype == torch.int32
     for g, w in zip(convert.tables_to_numpy(got), want):
+        assert g.shape == (24, 8, 256)
         assert np.array_equal(g, w.astype(np.uint32))
     # entry 0 is the (0, 0) identity marker; entry 2^j is point 8g + j
-    assert not got[0][:, :, 0].any() and not got[1][:, :, 0].any()
-    x, y = (g1_vec.FQ.unpack_mont(t[:, 3, 4].reshape(24, 1))[0] for t in got)
+    assert not got[:, 0].any()
+    tx, ty = msm_fixed.unpack_tables(got)
+    x, y = (g1_vec.FQ.unpack_mont(t[:, 3, 4].reshape(24, 1))[0] for t in (tx, ty))
     assert pts[8 * 3 + 2].to_affine() == (x, y)
+    # the JAX tables cross into the port's layout and back unchanged
+    assert torch.equal(convert.tables_to_torch(want), got)
+
+
+def test_pack_unpack_roundtrip():
+    """One entry is x's 12 words then y's, two 16-bit limbs a word, low limb
+    first; words above 2^31 keep their bit pattern in int32."""
+    rng = np.random.default_rng(21)
+    tx, ty = (torch.from_numpy(rng.integers(0, 1 << 16, size=(24, 3, 256)).astype(np.int32)) for _ in range(2))
+    packed = msm_fixed.pack_tables(tx, ty)
+    assert packed.shape == (3, 256, 24) and packed.is_contiguous()
+    assert int(packed[2, 7, 0]) & 0xFFFFFFFF == int(tx[0, 2, 7]) | int(tx[1, 2, 7]) << 16
+    assert int(packed[1, 9, 23]) & 0xFFFFFFFF == int(ty[22, 1, 9]) | int(ty[23, 1, 9]) << 16
+    back = msm_fixed.unpack_tables(packed)
+    assert torch.equal(back[0], tx) and torch.equal(back[1], ty)
