@@ -8,8 +8,8 @@ Montgomery limb tensor on the engine's device. Every field operation is a
 
   * monomial x monomial  -> pad to 2^k, NTT, pointwise product, iNTT
   * divide by x^n - 1    -> row-block suffix sums
-  * divide by (x - z), evaluation -> power tables (doubling scans) and
-    suffix sums
+  * divide by (x - z), evaluation -> power tables and suffix sums
+    (``limbs.pow_table``, ``limbs.field_scan``: one kernel each on the card)
 """
 from __future__ import annotations
 
@@ -51,11 +51,7 @@ def scalar(v: int, device) -> torch.Tensor:
 
 def pow_table(z: torch.Tensor, n: int) -> torch.Tensor:
     """[1, z, ..., z^(n-1)] as (16, n) for a (16, 1) Montgomery z."""
-    one = FR.one(z.device)
-    if n == 1:
-        return one.clone()
-    seq = torch.cat([one, z.expand(16, n - 1)], dim=-1)
-    return limbs.doubling_scan(seq, _mul, one)
+    return limbs.pow_table(FR, z, n)
 
 
 def reduce_add(x: torch.Tensor) -> torch.Tensor:
@@ -69,9 +65,7 @@ def reduce_add(x: torch.Tensor) -> torch.Tensor:
 
 def suffix_sum_excl(x: torch.Tensor) -> torch.Tensor:
     """S[k] = sum_{t > k} x[t] along the last axis."""
-    zero = torch.zeros((16, 1), dtype=torch.int32, device=x.device)
-    inc = limbs.doubling_scan(x.flip(-1), _add, zero).flip(-1)
-    return torch.cat([inc[..., 1:], zero.expand(x.shape[:-1] + (1,))], dim=-1)
+    return limbs.field_scan(FR, x, "add", reverse=True, exclusive=True)[0]
 
 
 def pad_to(a: torch.Tensor, n: int) -> torch.Tensor:

@@ -14,7 +14,10 @@ returns ``cudaGetLastError()``; ``launch`` raises when that is not 0.
 
 The sub-NTT wrappers (``ntt_sub``, ``ntt_sub_4step``) live here beside
 their plain PyTorch versions; the NTT plans and ``ntt_device`` are in
-``ops/ntt.py``.
+``ops/ntt.py``. On the card a four-step transform is two launches of one
+kernel (csrc/ntt.cu): the bit reversal, the cross-twiddle multiply, the
+1/n of a scaled inverse and the transpose are index maps and one multiply
+in its epilogue.
 """
 from __future__ import annotations
 
@@ -46,7 +49,12 @@ _I = ctypes.c_longlong
 _SIGNATURES = {
     "bpt_field_op": [ctypes.c_int, ctypes.c_int, _P, _I, _I, _P, _I, _I, _P, _I, _P],
     "bpt_field_select": [ctypes.c_int, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P],
-    "bpt_ntt_sub": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "bpt_field_pow": [ctypes.c_int, _P, _P, _I, _P, ctypes.c_int, _P],
+    "bpt_field_scan": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P],
+    "bpt_field_pow_table": [ctypes.c_int, _P, _P, _I, _P],
+    "bpt_grand_product_fg": [_P] * 10 + [_I, _P],
+    "bpt_round3_combine": [_P] * 6 + [_I, _I, _P],
+    "bpt_ntt_sub": [_P, _P, _P, _P] + [_I] * 11 + [ctypes.c_int, _P],
     "bpt_g1_padd": [_P] * 9 + [_I, _P],
     "bpt_g1_pdouble": [_P] * 6 + [_I, _P],
     "bpt_msm_bitserial": [_P] * 4 + [_I, ctypes.c_int] + [_P] * 4,
@@ -132,6 +140,8 @@ def library():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.bpt_ntt_sub_smem.argtypes = [_I, _I]
+        lib.bpt_ntt_sub_smem.restype = _I
         _lib = lib
     return _lib
 
@@ -177,17 +187,34 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 # Sub-NTT (counterpart of ops/pallas_kernels.py::ntt_sub_pallas, :355)
 # -----------------------------------------------------------------------------
 
-#: Largest sub-NTT length the single-pass kernel takes: one block holds
-#: m * C Montgomery elements of 32 bytes in shared memory with m * C = 1024
-#: (32 KB, inside the 48 KB a block gets without opting in). Longer
-#: transforms split into m1 x m2 through ``ntt_sub_4step``.
+#: Largest sub-NTT length the single-pass kernel takes: at m = 1024 a block
+#: holds 4 columns (161 KB of the 227 KB of shared memory a block may opt
+#: in to). Longer transforms split into m1 x m2 through ``ntt_sub_4step``.
 SUB_MAX_M = 1024
+#: Shared memory a block may use on this card (bytes)
+SMEM_BLOCK = 232448
+#: Columns a block takes where there are that many: 8 int32 limbs are one
+#: full 32-byte sector of a limb plane
+COLUMNS = 8
 
 
-def _columns_per_block(m: int, B: int) -> int:
+def sub_smem_bytes(m: int, c: int) -> int:
+    """Shared memory of one ``ntt_sub_kernel`` block (csrc/ntt.cu::
+    bpt_ntt_sub_smem): 8 word planes of c padded columns, m - 1 twiddles."""
+    return 32 * (c * (m + (32 // c if c < 32 else 1)) + m - 1)
+
+
+def _columns_per_block(m: int, ncols: int) -> int:
+    """Columns a block takes: the largest power of two up to COLUMNS that
+    divides ``ncols``, halved while one block's shared memory does not fit
+    (m = 1024 runs at 4). Measured at m = 512: 8 columns at one block an SM
+    beat 4 columns at two (the kernel's registers allow one 512-thread block
+    an SM either way)."""
     c = 1
-    while c * 2 * m <= SUB_MAX_M and B % (c * 2) == 0:
+    while c * 2 <= COLUMNS and ncols % (c * 2) == 0:
         c *= 2
+    while c > 1 and sub_smem_bytes(m, c) > SMEM_BLOCK:
+        c //= 2
     return c
 
 
@@ -214,12 +241,34 @@ def ntt_sub_plain(a: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _launch_sub(src, dst, inverse: bool, K: int, m: int, ncols: int, inner: int,
+                in_row: int, in_cq: int, out_row: int, out_cq: int, natural: bool,
+                cross=None, cross_div: int = 1) -> None:
+    """One launch of ``ntt_sub_kernel``: K x ncols columns of length m read
+    from ``src`` and written to ``dst`` through the strides of
+    csrc/ntt.cu::SubNtt (both hold K * m * ncols elements a limb plane)."""
+    from . import ntt
+
+    dev = check_cuda(src, dst)
+    if m < 2 or m & (m - 1) or m > SUB_MAX_M:
+        raise ValueError(f"sub-NTT length {m}")
+    tw = ntt.stage_twiddles(m, inverse, dev)
+    cols = _columns_per_block(m, ncols)
+    if sub_smem_bytes(m, cols) > SMEM_BLOCK:
+        raise ValueError(f"sub-NTT of length {m} does not fit a block's shared memory")
+    launch("bpt_ntt_sub", ptr(src), ptr(dst), ptr(tw), None if cross is None else ptr(cross),
+           K, m, ncols, inner, in_row, in_cq, out_row, out_cq,
+           0 if cross is None else cross.shape[-1], cross_div, cols, int(natural), stream(dev))
+    ntt_sub.launches += 1
+
+
 def ntt_sub(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     """All log2(m) butterfly stages of a length-m Fr NTT along axis -2 of a
     (16, K, m, B) Montgomery batch (K and B are batch axes), output rows in
     BIT-REVERSED order, no 1/m scaling — the contract of
     ``ntt_sub_pallas`` (ops/pallas_kernels.py:355), with the batch axes the
-    TPU kernel lacked. m <= SUB_MAX_M."""
+    TPU kernel lacked. m <= SUB_MAX_M. ``launches`` counts kernel launches,
+    those of ``ntt_sub_4step`` included."""
     from . import ntt
 
     L, K, m, B = a.shape
@@ -227,41 +276,28 @@ def ntt_sub(a: torch.Tensor, inverse: bool) -> torch.Tensor:
         raise ValueError(f"ntt_sub: bad shape {tuple(a.shape)}")
     if m == 1:
         return a
-    pw = ntt.sub_twiddles(m, inverse, a.device)
     if on_cpu(a):
-        return ntt_sub_plain(a, pw).to(torch.int32)
-    dev = check_cuda(a, pw)
+        return ntt_sub_plain(a, ntt.sub_twiddles(m, inverse, a.device)).to(torch.int32)
+    check_cuda(a)
     a = a.contiguous()
     out = torch.empty_like(a)
-    cols = _columns_per_block(m, B)
-    launch("bpt_ntt_sub", ptr(a), ptr(out), ptr(pw), K, m, B, cols, stream(dev))
-    ntt_sub.launches += 1
+    _launch_sub(a, out, inverse, K, m, B, 1, B, 1, B, 1, natural=False)
     return out
 
 
 ntt_sub.launches = 0
 
 
-def ntt_sub_4step(a: torch.Tensor, inverse: bool, sub_max: int | None = None,
-                  plain: bool = False) -> torch.Tensor:
-    """Natural-order length-m Fr NTT along axis -2 of (16, K, m, B) as
-    m = m1 x m2 (counterpart of ``ntt_sub_pallas_4step``,
-    ops/pallas_kernels.py:402): sub-NTT over m1 (lanes m2*B), bit-reversal
-    row gather, cross-twiddle multiply by w^(j1*i2), transpose, sub-NTT over
-    m2 (lanes m1*B), bit-reversal gather. A factor above ``sub_max``
-    (default SUB_MAX_M) recurses. No 1/m scaling.
-
-    A composition: its sub-passes launch ``ntt_sub`` and the cross-twiddle
-    multiply launches ``limbs.mont_mul``; ``launches`` counts the
-    compositions run on the card. ``plain`` runs the plain versions of both
-    whatever the device (the reference on the card)."""
+def _four_step_composed(a, inverse, sub_max, plain, scaled):
+    """The four-step transform as a composition of separate passes: sub-NTT
+    over m1 (lanes m2*B), bit-reversal row gather, cross-twiddle multiply by
+    w^(j1*i2), transpose, sub-NTT over m2 (lanes m1*B), bit-reversal gather.
+    The plain version of the two-launch path, the CPU's path, and the path of
+    a factor above ``sub_max``, which recurses."""
     from . import limbs, ntt
 
-    sub_max = SUB_MAX_M if sub_max is None else sub_max
     L, K, m, B = a.shape
-    if m == 1:
-        return a
-    m1, m2, crossT, br1, br2 = ntt.plan4(m, inverse, a.device)
+    m1, m2, crossT, br1, br2 = ntt.plan4(m, inverse, a.device, scaled)
 
     def sub(x, mm, br):  # natural-order length-mm NTT along axis -2
         if mm > sub_max:
@@ -279,10 +315,47 @@ def ntt_sub_4step(a: torch.Tensor, inverse: bool, sub_max: int | None = None,
     else:
         x = limbs.mont_mul(limbs.FR, x, w)
     x = sub(x.transpose(2, 3).reshape(L, K, m2, m1 * B), m2, br2)
-    if not plain and not on_cpu(a):
-        ntt_sub_4step.launches += 1
     # rows are (j2, j1): flattening gives index j1 + m1*j2, natural order
     return x.reshape(L, K, m, B)
+
+
+def ntt_sub_4step(a: torch.Tensor, inverse: bool, sub_max: int | None = None,
+                  plain: bool = False, scaled: bool = False) -> torch.Tensor:
+    """Natural-order length-m Fr NTT along axis -2 of (16, K, m, B) as
+    m = m1 x m2 (counterpart of ``ntt_sub_pallas_4step``,
+    ops/pallas_kernels.py:402). No 1/m scaling unless ``scaled`` (an inverse
+    transform then includes it: the plan folds 1/m into the cross twiddles).
+
+    On a CUDA tensor two launches of the sub-NTT kernel: pass 1 transforms
+    the m2*B strided columns of length m1 and stores row j1 in natural order
+    times w^(j1*i2); pass 2 transforms the m1*B contiguous rows of length m2
+    and stores element j2 of row j1 at j2*m1 + j1. ``launches`` counts
+    transforms, ``ntt_sub.launches`` the kernel launches: 2 a transform. A
+    factor above ``sub_max`` (default SUB_MAX_M) recurses through the
+    composition of separate passes, which is also the CPU's path and, with
+    ``plain``, the reference on the card."""
+    from . import ntt
+
+    sub_max = SUB_MAX_M if sub_max is None else sub_max
+    L, K, m, B = a.shape
+    if m == 1:
+        return a
+    m1, m2 = ntt.split(m)
+    if plain or on_cpu(a) or m2 > sub_max or m1 == 1:
+        out = _four_step_composed(a, inverse, sub_max, plain, scaled)
+        if not plain and not on_cpu(a):
+            ntt_sub_4step.launches += 1
+        return out
+    check_cuda(a)
+    a = a.contiguous()
+    cross = ntt.plan4(m, inverse, a.device, scaled)[2]
+    mid = torch.empty_like(a)  # (16, K, m1, m2 * B): row j1, natural order, twiddled
+    _launch_sub(a, mid, inverse, K, m1, m2 * B, 1, m2 * B, 1, m2 * B, 1, natural=True,
+                cross=cross, cross_div=B)
+    out = torch.empty_like(a)  # (16, K, m2, m1 * B): row j2
+    _launch_sub(mid, out, inverse, K, m2, m1 * B, B, B, m2 * B, m1 * B, B, natural=True)
+    ntt_sub_4step.launches += 1
+    return out
 
 
 ntt_sub_4step.launches = 0

@@ -13,13 +13,20 @@ has no add, shift, where or gather for uint32/uint64), on a CUDA tensor it
 launches the hand-written kernel or raises. The plain versions double as
 the reference the kernels are held against on the card.
 
-Kernel: ``bpt_field_op`` / ``bpt_field_select`` (csrc/field.cu), the
+Kernels (csrc/field.cu): ``bpt_field_op`` / ``bpt_field_select``, the
 counterpart of ``mont_mul_pallas`` (baby_plonk_tpu/ops/pallas_kernels.py:43)
 and of the XLA elementwise ops of ops/limbs.py (add/sub/neg :325-345,
-to/from_mont :812-824).
+to/from_mont :812-824); and what ``jax.jit`` compiled into one executable
+there and an eager composition would run as a launch a field operation:
+``bpt_field_pow`` (``mont_pow_fixed``, limbs.py:842), ``bpt_field_scan``
+(``field_scan``; the reference's ``doubling_scan``, :860, stays as the plain
+version) and ``bpt_field_pow_table`` (``pow_table``). Field arithmetic is
+exact and associative, so a kernel that combines in another order than its
+plain version gives the same canonical limbs: all are compared with ``==``.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -260,14 +267,22 @@ def _operand(L: int, x, out_batch):
 def _launch_op(counter, spec: FieldSpec, op: int, a, b=None):
     xs = (a,) if b is None else (a, b)
     dev = kernels.check_cuda(*xs)
-    out_batch = broadcast_batch(*(x.shape[1:] for x in xs))
-    a, (a_div, a_mod) = _operand(spec.L, a, out_batch)
-    if b is None:
-        b, b_div, b_mod = a, a_div, a_mod
+    if all(x.shape == a.shape and x.is_contiguous() for x in xs) and a.shape[0] == spec.L:
+        # equal contiguous shapes: no broadcast map to work out
+        out = torch.empty_like(a)
+        n = out[0].numel()
+        b = a if b is None else b
+        a_div = b_div = 1
+        a_mod = b_mod = n
     else:
-        b, (b_div, b_mod) = _operand(spec.L, b, out_batch)
-    out = torch.empty((spec.L,) + tuple(out_batch), dtype=torch.int32, device=dev)
-    n = math.prod(out_batch)
+        out_batch = broadcast_batch(*(x.shape[1:] for x in xs))
+        a, (a_div, a_mod) = _operand(spec.L, a, out_batch)
+        if b is None:
+            b, b_div, b_mod = a, a_div, a_mod
+        else:
+            b, (b_div, b_mod) = _operand(spec.L, b, out_batch)
+        out = torch.empty((spec.L,) + tuple(out_batch), dtype=torch.int32, device=dev)
+        n = math.prod(out_batch)
     if n:
         kernels.launch(
             "bpt_field_op", spec.cid, op,
@@ -365,28 +380,54 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 
 
 # -----------------------------------------------------------------------------
-# Compositions (Python loops around kernel launches)
+# Power, scans, power table, batched inverse
 # -----------------------------------------------------------------------------
 
 
-def mont_pow_fixed(spec: FieldSpec, a, exponent: int, mul=None):
-    """a^exponent (Montgomery in/out), left-to-right square-and-multiply.
-    ``mul`` defaults to the dispatching ``mont_mul``."""
-    mul = mul or (lambda x, y: mont_mul(spec, x, y))
-    if exponent == 0:
-        return spec.one(a.device).expand(a.shape).to(a.dtype)
+_POW_WORDS = 12  # exponent words the kernel takes (384 bits)
+
+
+def _mont_pow_plain(spec: FieldSpec, a, exponent: int) -> torch.Tensor:
+    """Plain version of ``mont_pow_fixed``: left-to-right square-and-multiply,
+    one ``_mont_mul_plain`` a step (exponent > 0); int64 limbs out."""
     r = a
     for bit in bin(exponent)[3:]:
-        r = mul(r, r)
+        r = _mont_mul_plain(spec, r, r)
         if bit == "1":
-            r = mul(r, a)
+            r = _mont_mul_plain(spec, r, a)
     return r
+
+
+def mont_pow_fixed(spec: FieldSpec, a, exponent: int, plain: bool = False):
+    """a^exponent per lane (Montgomery in/out) for one exponent >= 0.
+    On a CUDA tensor ONE launch of ``bpt_field_pow`` (square-and-multiply
+    inside the thread) where the reference's scan over the exponent bits
+    (limbs.py:842) was one executable. Bound: operations, a square a bit
+    and a product a set bit; on one lane a latency chain. ``plain`` runs
+    the plain version whatever the device."""
+    if exponent == 0:
+        return spec.one(a.device).expand(a.shape).to(a.dtype)
+    if plain or kernels.on_cpu(a):
+        return _mont_pow_plain(spec, a, exponent).to(a.dtype)
+    dev = kernels.check_cuda(a)
+    if a.shape[0] != spec.L or exponent >> (32 * _POW_WORDS):
+        raise ValueError(f"mont_pow_fixed: shape {tuple(a.shape)}, exponent of {exponent.bit_length()} bits")
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    n = out[0].numel()
+    if n:
+        words = (ctypes.c_uint * _POW_WORDS)(*((exponent >> (32 * i)) & 0xFFFFFFFF for i in range(_POW_WORDS)))
+        kernels.launch("bpt_field_pow", spec.cid, kernels.ptr(a), kernels.ptr(out), n,
+                       words, _POW_WORDS, kernels.stream(dev))
+        mont_pow_fixed.launches += 1
+    return out
 
 
 def doubling_scan(x: torch.Tensor, combine, identity: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix-combine along the last axis (Hillis–Steele: log2 n
     full-width combines, the shifted operand filled with ``identity``, an
-    (L, 1) tensor)."""
+    (L, 1) tensor): the reference's formulation, and the plain version of
+    ``field_scan``."""
     n = x.shape[-1]
     identity = identity.to(x.dtype).reshape((identity.shape[0],) + (1,) * (x.dim() - 1))
     k = 1
@@ -397,10 +438,101 @@ def doubling_scan(x: torch.Tensor, combine, identity: torch.Tensor) -> torch.Ten
     return x
 
 
+_SCAN_OPS = {"mul": 0, "add": 1}
+_SCAN_TILE = 256  # csrc/field.cu::SCAN_THREADS
+
+
+def _scan_plain(spec: FieldSpec, x, op: str, reverse: bool, exclusive: bool):
+    """Plain version of ``field_scan``: ``doubling_scan`` between the flips
+    and the shift by one that the kernel takes as flags. (out, total), int64."""
+    if op == "mul":
+        combine, identity = (lambda p, q: _mont_mul_plain(spec, p, q)), _c64(spec, spec.R, x.device)
+    else:
+        combine, identity = (lambda p, q: _add_plain(spec, p, q)), _c64(spec, 0, x.device)
+    y = x.to(torch.int64)
+    inc = doubling_scan(y.flip(-1) if reverse else y, combine, identity)
+    total = inc[..., -1:]
+    if exclusive:
+        first = _lead(identity, x.dim() - 1).expand(x.shape[:-1] + (1,))
+        inc = torch.cat([first, inc[..., :-1]], dim=-1)
+    return (inc.flip(-1) if reverse else inc), total
+
+
+def field_scan(spec: FieldSpec, x: torch.Tensor, op: str, reverse: bool = False,
+               exclusive: bool = False, plain: bool = False):
+    """Prefix product (``op`` "mul", Montgomery) or prefix sum ("add") along
+    the last axis of (L, *batch, n). ``reverse``: suffix scan (element k
+    combines x[k..n-1]); ``exclusive``: element k leaves x[k] out (the
+    identity at the open end). Returns (out, total) with total (L, *batch, 1)
+    the combination of the whole axis.
+
+    On a CUDA tensor ``bpt_field_scan``: n work in one pass over tiles of 256
+    (three small launches, one when n <= 256) where the reference's
+    ``doubling_scan`` (limbs.py:860, chosen there for the TPU's tile padding)
+    makes log2 n full-width passes; the flip and the shift are index maps in
+    the kernel, not tensor copies. Bound: bytes for the sum, one product an
+    element for the product. ``plain`` runs the plain version whatever the
+    device."""
+    if plain or kernels.on_cpu(x):
+        out, total = _scan_plain(spec, x, op, reverse, exclusive)
+        return out.to(x.dtype), total.to(x.dtype)
+    dev = kernels.check_cuda(x)
+    if x.shape[0] != spec.L or x.dim() < 2:
+        raise ValueError(f"field_scan: bad shape {tuple(x.shape)}")
+    if x.numel() == 0:
+        raise ValueError("field_scan: empty operand")
+    x = x.contiguous()
+    n = x.shape[-1]
+    rows = x[0].numel() // n
+    out = torch.empty_like(x)
+    total = torch.empty(x.shape[:-1] + (1,), dtype=torch.int32, device=dev)
+    tiles = -(-n // _SCAN_TILE)
+    scratch = torch.empty((2, spec.L, rows, tiles), dtype=torch.int32, device=dev) if tiles > 1 else None
+    kernels.launch(
+        "bpt_field_scan", spec.cid, _SCAN_OPS[op], kernels.ptr(x), kernels.ptr(out), kernels.ptr(total),
+        kernels.ptr(scratch[0]) if tiles > 1 else None, kernels.ptr(scratch[1]) if tiles > 1 else None,
+        rows, n, int(reverse), int(exclusive), kernels.stream(dev),
+    )
+    field_scan.launches += 1
+    return out, total
+
+
+def _pow_table_plain(spec: FieldSpec, z: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of ``pow_table``: the doubling scan of [1, z, z, ...]."""
+    one = _c64(spec, spec.R, z.device)
+    if n == 1:
+        return one.clone()
+    seq = torch.cat([one, z.to(torch.int64).expand(spec.L, n - 1)], dim=-1)
+    return doubling_scan(seq, lambda p, q: _mont_mul_plain(spec, p, q), one)
+
+
+def pow_table(spec: FieldSpec, z: torch.Tensor, n: int, plain: bool = False) -> torch.Tensor:
+    """[1, z, ..., z^(n-1)] as (L, n) for an (L, 1) Montgomery z. On a CUDA
+    tensor ``bpt_field_pow_table``, a kernel of its own rather than the scan
+    of a broadcast operand: each thread raises z to its first index by
+    square-and-multiply and walks on from there, so nothing of size n is
+    read. Bound: bytes (n elements written)."""
+    if z.shape != (spec.L, 1) or n < 1:
+        raise ValueError(f"pow_table: z of shape {tuple(z.shape)}, n = {n}")
+    if plain or kernels.on_cpu(z):
+        return _pow_table_plain(spec, z, n).to(z.dtype)
+    dev = kernels.check_cuda(z)
+    out = torch.empty((spec.L, n), dtype=torch.int32, device=dev)
+    kernels.launch("bpt_field_pow_table", spec.cid, kernels.ptr(z.contiguous()), kernels.ptr(out), n,
+                   kernels.stream(dev))
+    pow_table.launches += 1
+    return out
+
+
+for _fn in (mont_pow_fixed, field_scan, pow_table):
+    _fn.launches = 0
+
+
 def batch_inverse(spec: FieldSpec, a: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """Elementwise inverse over the last axis (Montgomery in/out) with one
-    field inversion (prefix/suffix products); zeros map to zero. ``plain``
-    runs the plain versions whatever the device (a reference on the card)."""
+    field inversion: inv(a_k) = (prefix before k) (suffix after k) / total,
+    two exclusive scans and one power; zeros map to zero. ``plain`` runs the
+    plain versions whatever the device (a reference on the card)."""
     if plain:
         mul = lambda x, y: _mont_mul_plain(spec, x, y)
         sel = lambda c, x, y: torch.where(c[None], x, _lead(y, x.dim() - 1))
@@ -410,11 +542,8 @@ def batch_inverse(spec: FieldSpec, a: torch.Tensor, plain: bool = False) -> torc
     one = spec.one(a.device).to(a.dtype)
     nz = ~is_zero(a)
     safe = sel(nz, a, one)
-    inc = doubling_scan(safe, mul, one)
-    total = inc[..., -1:]
-    inv_total = mont_pow_fixed(spec, total, spec.modulus - 2, mul)
-    ones = one.reshape((spec.L,) + (1,) * (a.dim() - 1)).expand(total.shape)
-    pre = torch.cat([ones, inc[..., :-1]], dim=-1)
-    suf = torch.cat([doubling_scan(safe.flip(-1), mul, one).flip(-1)[..., 1:], ones], dim=-1)
+    pre, total = field_scan(spec, safe, "mul", exclusive=True, plain=plain)
+    suf, _ = field_scan(spec, safe, "mul", reverse=True, exclusive=True, plain=plain)
+    inv_total = mont_pow_fixed(spec, total, spec.modulus - 2, plain=plain)
     out = mul(mul(pre, inv_total), suf)
     return sel(nz, out, torch.zeros_like(out))

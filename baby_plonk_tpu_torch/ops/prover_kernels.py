@@ -14,6 +14,14 @@ counterpart.
 
 Round 5 (``linear_combine_device``, JAX :324): sum_i c_i p_i + const as
 one stacked multiply and a halving sum.
+
+Fused round expressions (csrc/field.cu): what ``jax.jit`` compiled into one
+executable in the reference is one kernel here, every intermediate in
+registers, each row read once: ``round3_combine`` (``bpt_round3_combine``,
+JAX ``_round3_combine_rows`` :75) and ``grand_product_fg``
+(``bpt_grand_product_fg``, the f and g of JAX
+``tpu_engine._grand_product_full`` :85). Their plain versions are the
+unfused expressions over ``limbs``.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ import torch
 from ..fields import fr
 from ..protocol.poly import Basis
 
-from . import limbs
+from . import kernels, limbs
 from .dpoly import DPoly, _debug_asserts, pad_to, pow_table, scalar
 from .limbs import FR
 from .ntt import ntt_device
@@ -42,6 +50,107 @@ def _add(a, b):
 
 def _sub(a, b):
     return limbs.sub_mod(FR, a, b)
+
+
+def scalars(values, device) -> torch.Tensor:
+    """(16, k) Montgomery forms of k host scalars, one transfer."""
+    return FR.pack_raw([v % Q * FR.R % Q for v in values], device)
+
+
+def _ops(plain: bool):
+    """(mul, add, sub): the dispatching wrappers, or the plain versions
+    whatever the device."""
+    if plain:
+        return tuple((lambda a, b, f=f: f(FR, a, b).to(torch.int32))
+                     for f in (limbs._mont_mul_plain, limbs._add_plain, limbs._sub_plain))
+    return _mm, _add, _sub
+
+
+def _grand_product_fg_plain(a, b, c, s1, s2, s3, roots, sc, plain=True):
+    mm, add, _ = _ops(plain)
+    beta, gamma, k1, k2 = (sc[:, i : i + 1] for i in range(4))
+
+    def rlc(x, y):
+        return add(add(x, mm(beta, y)), gamma)
+
+    f = mm(mm(rlc(a, roots), rlc(b, mm(roots, k1))), rlc(c, mm(roots, k2)))
+    g = mm(mm(rlc(a, s1), rlc(b, s2)), rlc(c, s3))
+    return f, g
+
+
+def grand_product_fg(a, b, c, s1, s2, s3, roots, beta: int, gamma: int, k1: int, k2: int,
+                     plain: bool = False):
+    """Round 2's two products per row, all (16, n) Montgomery:
+    f = rlc(a, w) rlc(b, k1 w) rlc(c, k2 w), g = rlc(a, s1) rlc(b, s2)
+    rlc(c, s3) with rlc(x, y) = x + beta y + gamma. On CUDA tensors one
+    launch, 7 rows read and 2 written (bound: bytes), where the unfused
+    expression is 18 launches."""
+    rows = (a, b, c, s1, s2, s3, roots)
+    sc = scalars((beta, gamma, k1, k2), a.device)
+    if plain or kernels.on_cpu(*rows):
+        return _grand_product_fg_plain(*rows, sc, plain)
+    dev = kernels.check_cuda(*rows)
+    n = a.shape[-1]
+    if any(r.shape != (16, n) for r in rows):
+        raise ValueError("grand_product_fg: rows must all be (16, n)")
+    rows = [r.contiguous() for r in rows]
+    f, g = torch.empty_like(rows[0]), torch.empty_like(rows[0])
+    kernels.launch("bpt_grand_product_fg", *(kernels.ptr(r) for r in rows), kernels.ptr(sc),
+                   kernels.ptr(f), kernels.ptr(g), n, kernels.stream(dev))
+    grand_product_fg.launches += 1
+    return f, g
+
+
+def _round3_combine_plain(live, fixed, zh_inv, dpow, sc, shift, plain=True):
+    mm, add, sub = _ops(plain)
+    aE, bE, cE, zE, piE = live.unbind(1)
+    s1E, s2E, s3E, qlE, qrE, qmE, qoE, qcE, l1E = fixed.unbind(1)
+    beta, gamma, alpha, alpha2, k1, k2 = (sc[:, i : i + 1] for i in range(6))
+    zwE = torch.roll(zE, -shift, dims=-1)
+
+    def rlc(x, y):
+        return add(add(x, mm(beta, y)), gamma)
+
+    gate = add(
+        add(add(mm(aE, qlE), mm(bE, qrE)), mm(mm(aE, bE), qmE)),
+        add(add(mm(cE, qoE), piE), qcE),
+    )
+    perm = sub(
+        mm(mm(mm(rlc(aE, dpow), rlc(bE, mm(k1, dpow))), rlc(cE, mm(k2, dpow))), zE),
+        mm(mm(mm(rlc(aE, s1E), rlc(bE, s2E)), rlc(cE, s3E)), zwE),
+    )
+    first = mm(sub(zE, FR.one(live.device)), l1E)
+    allE = add(gate, add(mm(alpha, perm), mm(alpha2, first)))
+    return mm(allE, zh_inv)
+
+
+def round3_combine(live, fixed, zh_inv, dpow, sc, shift: int, plain: bool = False):
+    """Round 3's pointwise combination on the coset, (16, m) Montgomery:
+    (gate + alpha perm + alpha^2 first-row) / Z_H. ``live`` (16, 5, m): the
+    evaluations of a, b, c, z, pi; ``fixed`` (16, 9, m): s1, s2, s3, ql, qr,
+    qm, qo, qc, l1; ``sc`` (16, 6): beta, gamma, alpha, alpha^2, k1, k2;
+    z(w x) is z read ``shift`` lanes ahead. On CUDA tensors one launch, 16
+    rows read and one written (bound: bytes), where the unfused expression is
+    about 45 launches and a rolled copy of z."""
+    ops = (live, fixed, zh_inv, dpow, sc)
+    if plain or kernels.on_cpu(*ops):
+        return _round3_combine_plain(*ops, shift, plain)
+    dev = kernels.check_cuda(*ops)
+    m = live.shape[-1]
+    if (live.shape, fixed.shape, zh_inv.shape, dpow.shape, sc.shape) != (
+            (16, 5, m), (16, 9, m), (16, m), (16, m), (16, 6)):
+        raise ValueError("round3_combine: bad operand shapes")
+    live, fixed, zh_inv, dpow, sc = (t.contiguous() for t in ops)
+    out = torch.empty((16, m), dtype=torch.int32, device=dev)
+    kernels.launch("bpt_round3_combine", kernels.ptr(live), kernels.ptr(fixed), kernels.ptr(zh_inv),
+                   kernels.ptr(dpow), kernels.ptr(sc), kernels.ptr(out), m, shift % m,
+                   kernels.stream(dev))
+    round3_combine.launches += 1
+    return out
+
+
+grand_product_fg.launches = 0
+round3_combine.launches = 0
 
 
 @functools.lru_cache(maxsize=4)
@@ -85,29 +194,12 @@ def round3_quotient_device(
         fixed = ((m, str(dev)), rows)
         if pk_cache is not None:
             pk_cache.coset_rows = fixed
-    s1E, s2E, s3E, qlE, qrE, qmE, qoE, qcE, l1E = fixed[1].unbind(1)
-    aE, bE, cE, zE, piE = _coset_ntt([a_c, b_c, c_c, z_c, pi_c], m, gpow).unbind(1)
+    live = _coset_ntt([a_c, b_c, c_c, z_c, pi_c], m, gpow)
     # z(w x) on the coset: w = W^(m/n), so its evaluations are z's shifted
     # left by m/n = 4 positions (the NTT output is in natural order)
-    zwE = torch.roll(zE, -(m // n), dims=-1)
-
-    beta_m, gamma_m = scalar(beta, dev), scalar(gamma, dev)
-
-    def rlc(x, y):
-        return _add(_add(x, _mm(beta_m, y)), gamma_m)
-
-    gate = _add(
-        _add(_add(_mm(aE, qlE), _mm(bE, qrE)), _mm(_mm(aE, bE), qmE)),
-        _add(_add(_mm(cE, qoE), piE), qcE),
-    )
-    k1d, k2d = _mm(scalar(k1, dev), dpow), _mm(scalar(k2, dev), dpow)
-    perm = _sub(
-        _mm(_mm(_mm(rlc(aE, dpow), rlc(bE, k1d)), rlc(cE, k2d)), zE),
-        _mm(_mm(_mm(rlc(aE, s1E), rlc(bE, s2E)), rlc(cE, s3E)), zwE),
-    )
-    first = _mm(_sub(zE, FR.one(dev)), l1E)
-    allE = _add(gate, _add(_mm(scalar(alpha, dev), perm), _mm(scalar(alpha * alpha, dev), first)))
-    t = _mm(ntt_device(_mm(allE, zh_inv), inverse=True), ginvpow)
+    sc = scalars((beta, gamma, alpha, alpha * alpha, k1, k2), dev)
+    tE = round3_combine(live, fixed[1], zh_inv, dpow, sc, m // n)
+    t = _mm(ntt_device(tE, inverse=True), ginvpow)
     if _debug_asserts():
         # exact division <=> the 4n-interpolant has degree <= 3n + 5
         assert not bool(t[:, 3 * n + 6 :].any()), "constraint polynomial not divisible by Z_H"

@@ -20,11 +20,11 @@ from ..protocol.poly import Basis
 
 from ..curves.g1 import G1
 from . import g1_vec, limbs, msm, srs
-from .dpoly import DPoly, eval_many, scalar
+from .dpoly import DPoly, eval_many
 from .limbs import FR
 from .msm_fixed import tables_for_setup
 from .ntt import ntt_device, ntt_ints
-from .prover_kernels import linear_combine_device, round3_quotient_device
+from .prover_kernels import grand_product_fg, linear_combine_device, round3_quotient_device
 
 Q = fr.Q
 
@@ -146,26 +146,18 @@ class TorchEngine:
 
     def _grand_product(self, a, b, c, s1, s2, s3, roots, beta, gamma, k1, k2):
         """(z (16, n) with z[0] = 1, closing z_n (16, 1)); all Montgomery.
-        z_{i+1} = prod_{j<=i} f_j / g_j with one field inversion (prefix and
-        suffix products, as ``tpu_engine._grand_product_full``)."""
-        dev = self.device
+        z_i = prod_{j<i} f_j / g_j with one field inversion, as
+        ``tpu_engine._grand_product_full``: z_i = (f_0 .. f_{i-1})
+        (g_i .. g_{n-1}) / (g_0 .. g_{n-1}). The exclusive prefix of f and the
+        suffix of g are one scan each, with the totals of both: the
+        reference's third scan and its shifts by one were only another
+        reading of the same products."""
         mul = lambda x, y: limbs.mont_mul(FR, x, y)
-        beta_m, gamma_m = scalar(beta, dev), scalar(gamma, dev)
-
-        def rlc(x, y):
-            return limbs.add_mod(FR, limbs.add_mod(FR, x, mul(beta_m, y)), gamma_m)
-
-        k1r, k2r = mul(roots, scalar(k1, dev)), mul(roots, scalar(k2, dev))
-        f = mul(mul(rlc(a, roots), rlc(b, k1r)), rlc(c, k2r))
-        g = mul(mul(rlc(a, s1), rlc(b, s2)), rlc(c, s3))
-        one = FR.one(dev)
-        pf = limbs.doubling_scan(f, mul, one)
-        pg = limbs.doubling_scan(g, mul, one)
-        sufg = limbs.doubling_scan(g.flip(-1), mul, one).flip(-1)
-        total_inv = limbs.mont_pow_fixed(FR, pg[:, -1:], Q - 2)
-        sufg_shift = torch.cat([sufg[:, 1:], one], dim=-1)
-        z_tail = mul(pf, mul(sufg_shift, total_inv))  # z[1..n]
-        return torch.cat([one, z_tail[:, :-1]], dim=-1), z_tail[:, -1:]
+        f, g = grand_product_fg(a, b, c, s1, s2, s3, roots, beta, gamma, k1, k2)
+        pre_f, total_f = limbs.field_scan(FR, f, "mul", exclusive=True)
+        suf_g, total_g = limbs.field_scan(FR, g, "mul", reverse=True)
+        total_inv = limbs.mont_pow_fixed(FR, total_g, Q - 2)
+        return mul(mul(pre_f, suf_g), total_inv), mul(total_f, total_inv)
 
     def grand_product(self, a, b, c, s1, s2, s3, roots, beta, gamma, k1, k2) -> list[int]:
         pk = lambda v: FR.pack_mont(v, self.device)

@@ -159,3 +159,111 @@ def test_msm_partials_and_pdouble(dev):
     host = msm_host.msm(g1_vec.points_from_device(pts), ints)
     assert g1_vec.point_from_device(msm.msm_bitserial(pts, sc)) == host
     assert g1_vec.point_from_device(msm_pippenger.msm_pippenger(pts, sc, c=8)) == host
+
+
+@pytest.mark.parametrize("spec", [limbs.FR, limbs.FQ], ids=["fr", "fq"])
+def test_field_pow_one_launch(dev, spec):
+    """a^e in the kernel against square-and-multiply over the plain product:
+    one lane and 1000, the edge values 0, 1 and p - 1, e = p - 2 and small e."""
+    p = spec.modulus
+    for lanes in ([7], [0, 1, p - 1] + field_ints(11, p, 997)):
+        a = spec.pack_mont(lanes, dev)
+        for e in (p - 2, 1, 2, 5, (1 << 200) + 1):
+            before = limbs.mont_pow_fixed.launches
+            got = limbs.mont_pow_fixed(spec, a, e)
+            assert limbs.mont_pow_fixed.launches == before + 1
+            assert torch.equal(got.long(), limbs._mont_pow_plain(spec, a, e))
+        assert spec.unpack_mont(limbs.mont_pow_fixed(spec, a, 0)) == [1] * len(lanes)
+    inv = spec.unpack_mont(limbs.mont_pow_fixed(spec, spec.pack_mont([0, 1, p - 1, 12345], dev), p - 2))
+    assert inv == [0, 1, p - 1, pow(12345, -1, p)]
+
+
+@pytest.mark.parametrize("op", ["mul", "add"])
+@pytest.mark.parametrize("n", [1, 5, 255, 256, 257, 3000, 66000])
+def test_field_scan(dev, op, n):
+    """The one-pass scan against the doubling scan: both operators, forward
+    and reversed, inclusive and exclusive, a ragged n, one tile and several,
+    more tiles than one block of the prefix launch takes (66000), batch rows."""
+    spec = limbs.FR
+    rows = 1 if n > 3000 else 3
+    x = spec.pack_mont(field_ints(12 + n, spec.modulus, rows * n), dev).reshape(16, rows, n)
+    for reverse in (False, True):
+        for exclusive in (False, True):
+            got, total = limbs.field_scan(spec, x, op, reverse, exclusive)
+            want, want_total = limbs.field_scan(spec, x, op, reverse, exclusive, plain=True)
+            assert got.shape == x.shape and total.shape == (16, rows, 1)
+            assert torch.equal(got, want), (reverse, exclusive)
+            assert torch.equal(total, want_total)
+    fq = limbs.FQ
+    y = fq.pack_mont(field_ints(13, fq.modulus, min(n, 600)), dev)
+    assert torch.equal(limbs.field_scan(fq, y, op, True, True)[0], limbs.field_scan(fq, y, op, True, True, plain=True)[0])
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 1025, 5000])
+def test_pow_table(dev, n):
+    for spec in (limbs.FR, limbs.FQ):
+        z = spec.pack_mont(field_ints(14, spec.modulus, 1), dev)
+        assert torch.equal(limbs.pow_table(spec, z, n), limbs.pow_table(spec, z, n, plain=True))
+    z = limbs.FR.pack_mont([3], dev)
+    assert limbs.FR.unpack_mont(limbs.pow_table(limbs.FR, z, n)) == [pow(3, i, fr.Q) for i in range(n)]
+
+
+def test_batch_inverse(dev):
+    for spec in (limbs.FR, limbs.FQ):
+        xs = field_ints(15, spec.modulus, 700)
+        xs[3] = 0
+        got = spec.unpack_mont(limbs.batch_inverse(spec, spec.pack_mont(xs, dev)))
+        assert got == [pow(x, -1, spec.modulus) if x else 0 for x in xs]
+
+
+def test_fused_round_expressions(dev):
+    """bpt_round3_combine and bpt_grand_product_fg against the unfused
+    expressions over the plain field operations (m = 96 is no multiple of the
+    block; the rolled read of z wraps)."""
+    from baby_plonk_tpu_torch.ops import prover_kernels as pk
+
+    m = 96
+    pack = lambda seed, shape: limbs.FR.pack_mont(field_ints(seed, fr.Q, int(np.prod(shape))), dev).reshape((16,) + shape)
+    live, fixed = pack(30, (5, m)), pack(31, (9, m))
+    zh_inv, dpow, sc = pack(32, (m,)), pack(33, (m,)), pk.scalars(field_ints(34, fr.Q, 6), dev)
+    before = pk.round3_combine.launches
+    got = pk.round3_combine(live, fixed, zh_inv, dpow, sc, 4)
+    assert pk.round3_combine.launches == before + 1
+    assert torch.equal(got, pk.round3_combine(live, fixed, zh_inv, dpow, sc, 4, plain=True))
+    rows = [pack(40 + i, (m,)) for i in range(7)]
+    scal = field_ints(50, fr.Q, 4)
+    f, g = pk.grand_product_fg(*rows, *scal)
+    pf, pg = pk.grand_product_fg(*rows, *scal, plain=True)
+    assert torch.equal(f, pf) and torch.equal(g, pg)
+
+
+@pytest.mark.parametrize("K,m,B,sub_max", [(3, 4096, 1, None), (2, 64, 3, None), (1, 2, 4, None),
+                                           (1, 8, 1, None), (2, 64, 2, 4), (1, 1 << 18, 1, None)])
+def test_four_step_two_launches(dev, K, m, B, sub_max):
+    """The two-launch four-step transform against the composition of the
+    plain passes, forward, inverse and scaled inverse; an inner batch axis;
+    a forced recursion (sub_max 4); exactly two kernel launches a transform
+    when both factors fit a block."""
+    x = limbs.FR.pack_mont(field_ints(60 + m, fr.Q, K * m * B), dev).reshape(16, K, m, B)
+    for inverse, scaled in ((False, False), (True, False), (True, True)):
+        before = kernels.ntt_sub.launches
+        got = kernels.ntt_sub_4step(x, inverse, sub_max, scaled=scaled)
+        launched = kernels.ntt_sub.launches - before
+        if m <= 4096 or not inverse:
+            want = kernels.ntt_sub_4step(x, inverse, sub_max, plain=True, scaled=scaled)
+            assert torch.equal(got, want), (inverse, scaled)
+        if sub_max is None and m >= 4:
+            assert launched == 2
+    back = kernels.ntt_sub_4step(kernels.ntt_sub_4step(x, False, sub_max), True, sub_max, scaled=True)
+    assert torch.equal(back, x)
+
+
+def test_sub_ntt_shared_memory_plan(dev):
+    lib = kernels.library()
+    for m, c in ((2, 1), (256, 8), (512, 8), (1024, 4), (64, 2)):
+        assert lib.bpt_ntt_sub_smem(m, c) == kernels.sub_smem_bytes(m, c)
+    assert kernels.sub_smem_bytes(1024, kernels._columns_per_block(1024, 1024)) <= kernels.SMEM_BLOCK
+    # m = 1024 needs the opt-in above 48 KB
+    x = limbs.FR.pack_mont(field_ints(70, fr.Q, 1024 * 8), dev).reshape(16, 1, 1024, 8)
+    pw = ntt.sub_twiddles(1024, False, dev)
+    assert torch.equal(kernels.ntt_sub(x, False).long(), kernels.ntt_sub_plain(x, pw))

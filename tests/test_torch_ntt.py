@@ -60,9 +60,11 @@ def test_four_step_matches_jax_axis2(sub_max):
 
 def test_ntt_ints_match_host():
     vals = _values(9, (64,))
-    assert ntt.ntt_ints(vals) == hostpoly.ntt(vals)
-    assert ntt.ntt_ints(vals, inverse=True) == hostpoly.i_ntt(vals)
-    assert ntt.ntt_ints(ntt.ntt_ints(vals), inverse=True) == vals
+    assert ntt.ntt_ints(vals, device="cpu") == hostpoly.ntt(vals)
+    assert ntt.ntt_ints(vals, inverse=True, device="cpu") == hostpoly.i_ntt(vals)
+    assert ntt.ntt_ints(ntt.ntt_ints(vals, device="cpu"), inverse=True, device="cpu") == vals
+    with pytest.raises(TypeError):
+        ntt.ntt_ints(vals)  # the device is the caller's choice, never a default
 
 
 def test_plans():
@@ -74,5 +76,12 @@ def test_plans():
     w = fr.root_of_unity(32)
     got = FR.unpack_mont(crossT.reshape(16, -1))
     assert got == [pow(w, j1 * i2, fr.Q) for j1 in range(n1) for i2 in range(n2)]
-    assert kernels._columns_per_block(256, 256) == 4
-    assert kernels._columns_per_block(1024, 512) == 1
+    # a block takes 8 columns (full 32-byte sectors), fewer where one block's
+    # shared memory would not fit, and never more than divide the lanes
+    assert kernels._columns_per_block(256, 256) == 8
+    assert kernels._columns_per_block(512, 512) == 8
+    assert kernels._columns_per_block(1024, 512) == 4
+    assert kernels._columns_per_block(256, 12) == 4
+    assert kernels._columns_per_block(16, 3) == 1
+    assert kernels.sub_smem_bytes(256, 8) == 32 * (8 * 260 + 255)
+    assert kernels.sub_smem_bytes(1024, 4) <= kernels.SMEM_BLOCK < kernels.sub_smem_bytes(1024, 8)
