@@ -6,7 +6,7 @@ is the port's own copy under the same relative names, and everything that
 touches a device is ``ops.torch_engine.TorchEngine`` with the hand-written
 Hopper kernels under ``csrc/``.
 
-    from baby_plonk_tpu_torch.protocol.setup import generate_srs_device
+    from baby_plonk_tpu_torch.protocol.setup import Setup
     from baby_plonk_tpu_torch.protocol.prover import Prover
     from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
 """

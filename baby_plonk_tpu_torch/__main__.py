@@ -4,9 +4,10 @@ with the reference's `cargo verify` alias, .cargo/config:1-3).
   python -m baby_plonk_tpu_torch demo             # reference e2e circuit on the CUDA device
   python -m baby_plonk_tpu_torch demo --cpu       # same on the CPU (the kernels' plain versions)
   python -m baby_plonk_tpu_torch warmup --log2 16 # first-use set-up, one prove and verify at 2^16
+  python -m baby_plonk_tpu_torch bench            # the benchmark (bench.py), one JSON line
 
-Both run on the card unless ``--cpu`` is given; without a card and without
-``--cpu`` they raise.
+``demo`` and ``warmup`` run on the card unless ``--cpu`` is given; without a
+card and without ``--cpu`` they raise. ``bench`` runs on the card only.
 """
 from __future__ import annotations
 
@@ -48,14 +49,16 @@ def _demo(cpu: bool) -> int:
 
 def _warmup(logn: int, tau: int, cpu: bool) -> int:
     """First-use set-up of a proving process at n = 2^logn: build and load
-    the CUDA library, compute the device SRS, build the commit tables and
-    the proving-key caches through one prove, and verify it. There is no
-    compile cache to prime (PyTorch runs eagerly): everything made here
-    lives in this process, apart from the built library."""
+    the CUDA library, compute the device SRS into its disk cache
+    (``Setup.generate_srs_device(..., cache=True)``, under
+    ``Config.srs_cache_dir``), build the commit tables and the proving-key
+    caches through one prove, and verify it. There is no compile cache to
+    prime (PyTorch runs eagerly): the built library and the SRS file outlive
+    the process, everything else made here lives in it."""
     from . import circuits
     from .ops import kernels
     from .ops.torch_engine import TorchEngine
-    from .protocol import Program, Prover, Verifier, generate_srs_device
+    from .protocol import Program, Prover, Setup, Verifier
     from .utils.metrics import get_metrics
 
     device = _device(cpu)
@@ -69,7 +72,7 @@ def _warmup(logn: int, tau: int, cpu: bool) -> int:
     constraints, witness, public = circuits.mul_chain(n)
     program = Program.from_strs(constraints, n)
     with m.span("warmup.srs", sync=True):
-        setup = generate_srs_device(n + 6, tau, device)
+        setup = Setup.generate_srs_device(n + 6, tau, cache=True, device=device)
     with m.span("warmup.prove", sync=True):
         proof = Prover(setup, program, engine=engine).prove(witness)
     with m.span("warmup.verify"):
@@ -88,6 +91,7 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     demo = sub.add_parser("demo", help="prove+verify the reference e2e circuit")
     warm = sub.add_parser("warmup", help="first-use set-up, one prove and verify at 2^N gates")
+    sub.add_parser("bench", help="the benchmark on the card (bench.py; sizes from BPT_BENCH_*)")
     warm.add_argument("--log2", type=int, default=16, help="log2 of the gate count")
     warm.add_argument("--tau", type=lambda s: int(s, 0), default=0xDEADBEEF)
     for cmd in (demo, warm):
@@ -97,6 +101,10 @@ def main(argv=None) -> int:
 
     if args.cmd == "demo":
         return _demo(args.cpu)
+    if args.cmd == "bench":
+        from . import bench
+
+        return bench.main()
     return _warmup(args.log2, args.tau, args.cpu)
 
 

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
+def to_torch(a, device="cuda") -> torch.Tensor:
     """uint16 / uint32 limb array -> int32 tensor (same layout)."""
     a = np.asarray(a)
     if a.size and int(a.max()) > 0xFFFF:
@@ -39,7 +39,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
-def srs_to_torch(points, device="cpu"):
+def srs_to_torch(points, device="cuda"):
     return tuple(to_torch(c, device) for c in points)
 
 
@@ -47,7 +47,7 @@ def srs_to_numpy(points):
     return tuple(to_numpy(c) for c in points)
 
 
-def tables_to_torch(tables, device="cpu"):
+def tables_to_torch(tables, device="cuda"):
     """The JAX package's fixed-base tables (tx, ty), (24, G, 256) x2 limb
     arrays -> the port's packed tables, (G, 256, 24) int32 words."""
     from .ops import msm_fixed
@@ -106,7 +106,7 @@ def setup_to_affine(setup) -> list:
     return G1.batch_normalize(list(setup.powers_of_x))
 
 
-def setup_from_limbs(points, x2, device="cpu"):
+def setup_from_limbs(points, x2, device="cuda"):
     """SRS given as its (24, n) x3 Montgomery projective limb arrays -> the
     port's ``Setup`` with the points on ``device`` (no host point list)."""
     from .protocol.setup import Setup
@@ -119,7 +119,7 @@ def setup_from_limbs(points, x2, device="cpu"):
     return setup
 
 
-def setup_to_limbs(setup, device="cpu"):
+def setup_to_limbs(setup, device="cuda"):
     """The port's ``Setup`` -> (24, n) x3 uint32 limb arrays."""
     from .ops import srs
 

@@ -75,7 +75,7 @@ def powers_of_tau_device(powers: int, tau: int, device):
 def setup_points(setup, device):
     """The setup's G1 powers on ``device`` as (24, n) x3 Montgomery
     projective tensors, cached in its ``device_points``: the device SRS
-    made by ``generate_srs_device``, or the host ``powers_of_x`` uploaded
+    made by ``Setup.generate_srs_device``, or the host ``powers_of_x`` uploaded
     once."""
     cache = setup.device_points
     key = str(device)

@@ -6,7 +6,7 @@ from ..circuits import mul_chain
 from .program import Program
 from .proof import Proof
 from .prover import Prover
-from .setup import Setup, generate_srs_device
+from .setup import Setup
 from .verifier import Verifier
 
-__all__ = ["Program", "Proof", "Prover", "Setup", "Verifier", "generate_srs_device", "mul_chain"]
+__all__ = ["Program", "Proof", "Prover", "Setup", "Verifier", "mul_chain"]

@@ -1,0 +1,45 @@
+"""The least time an H100 could take for a kernel's work: the peaks and the
+work counts that ``chip_smoke.py`` (each kernel's ``bound_ms``) and
+``bench.py`` (``roofline_pct`` of the fixed-base MSM) share.
+
+The card's peaks (NVIDIA H100 SXM data sheet, at its 700 W power limit):
+HBM3 at 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores = 33.5e12
+fused multiply-adds a second on 128 lanes per SM, and the 32-bit integer
+multiply-add pipe has half those lanes.
+"""
+from __future__ import annotations
+
+MEM_BYTES_PER_S = 3.35e12
+INT_MAD_PER_S = 67e12 / 2 / 2
+#: 32-bit multiply-adds of one Montgomery product over N words
+#: (csrc/field.cuh::mul): 2 N^2 + N; of one square (cross products once):
+#: N (N + 1) / 2 + N^2 + N
+FR_MUL, FQ_MUL = 2 * 8 * 8 + 8, 2 * 12 * 12 + 12
+FR_SQR, FQ_SQR = 8 * 9 // 2 + 8 * 8 + 8, 12 * 13 // 2 + 12 * 12 + 12
+#: Fq products of the point formulas (csrc/g1.cuh); 2 of the doubling's 8
+#: are squares
+ADD_MULS, DOUBLE_MULS, MIXED_MULS = 12, 8, 11
+DOUBLE_MADS = 6 * FQ_MUL + 2 * FQ_SQR
+#: bytes of one Fr / Fq element in memory (16-bit limbs in int32)
+FR_BYTES, FQ_BYTES = 64, 96
+
+
+def bound(nbytes, mads):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    32-bit multiply-adds over the integer rate."""
+    t_b, t_o = nbytes / MEM_BYTES_PER_S * 1e3, mads / INT_MAD_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def horner_work(sc, G, windows):
+    """(bytes, multiply-adds) of one Horner launch of the fixed-base MSM
+    (``msm_fixed.msm_fixed_horner``) over raw scalars ``sc`` (16, P, 8 G):
+    tables of the G groups, scalars and partials once; per lane and step a
+    doubling, and a mixed addition where this run's index is not 0."""
+    from ..ops import msm_fixed
+
+    P = sc.shape[1]
+    nonzero = sum(int((msm_fixed._table_index(sc, bit) != 0).sum()) for bit in range(msm_fixed.NBITS))
+    steps = P * G * msm_fixed.window_bits(windows) * windows
+    return (FQ_BYTES * 256 * G + FR_BYTES * P * 8 * G + 3 * FQ_BYTES * P * windows * G,
+            DOUBLE_MADS * steps + FQ_MUL * MIXED_MULS * nonzero)

@@ -7,11 +7,9 @@
                                      # the prove's shapes through entry points that every
                                      # version of the package has (copy the script beside an
                                      # older package to time that one on the same card)
-    python3 chip_smoke.py --prove-times  # phases 1-2, then only the first and second NTT of
-                                     # each size of the prove (the first builds its plan on the
-                                     # host), a cold and three warm proves at 2^16 with their
-                                     # round spans, no kernel checks before them (works beside
-                                     # an older package too)
+
+The plans, cold and warm proves with their round spans, timed in a process
+that runs nothing else: ``python -m baby_plonk_tpu_torch bench``.
 
 Phases, each printed with its seconds:
   1. device: name and power limit (nvidia-smi); no CUDA device -> exit 1
@@ -42,44 +40,27 @@ Phases, each printed with its seconds:
      "bitserial" and one with "pippenger", fixed blinding; proof bytes equal
      to each other and to the fixed-base proof of the same blinding; the
      bit-serial kernel must have launched and the Horner kernel must not
+  7. setup cache: on a fresh temporary cache directory,
+     Setup.generate_srs_device(2^16 + 6, cache=True) twice (writes, then
+     reads); the points read back equal phase 4's, and a prove from them
+     gives phase 6's fixed-base proof bytes
+  8. bench: python -m baby_plonk_tpu_torch bench in a child process at small
+     sizes (MSM, prove 2^12, NTT 2^16, host 2^8, with the bit-serial MSM) on
+     the same cache directory; its last line parses with every key
 Then one JSON line of kernels, the card line, and the final status line.
 Any failure raises: non-zero exit, no status line.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20260101
 TAU = 0x5EED_7A0
-
-#: The card's peaks for the bounds (NVIDIA H100 SXM data sheet): HBM3 at
-#: 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores = 33.5e12 fused
-#: multiply-adds a second on 128 lanes per SM, and the 32-bit integer
-#: multiply-add pipe has half those lanes.
-MEM_BYTES_PER_S = 3.35e12
-INT_MAD_PER_S = 67e12 / 2 / 2
-#: 32-bit multiply-adds of one Montgomery product over N words
-#: (csrc/field.cuh::mul): 2 N^2 + N; of one square (cross products once):
-#: N (N + 1) / 2 + N^2 + N
-FR_MUL, FQ_MUL = 2 * 8 * 8 + 8, 2 * 12 * 12 + 12
-FR_SQR, FQ_SQR = 8 * 9 // 2 + 8 * 8 + 8, 12 * 13 // 2 + 12 * 12 + 12
-#: Fq products of the point formulas (csrc/g1.cuh); 2 of the doubling's 8
-#: are squares
-ADD_MULS, DOUBLE_MULS, MIXED_MULS = 12, 8, 11
-DOUBLE_MADS = 6 * FQ_MUL + 2 * FQ_SQR
-#: bytes of one Fr / Fq element in memory (16-bit limbs in int32)
-FR_BYTES, FQ_BYTES = 64, 96
-
-
-def bound(nbytes, mads):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    32-bit multiply-adds over the integer rate."""
-    t_b, t_o = nbytes / MEM_BYTES_PER_S * 1e3, mads / INT_MAD_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
 
 def popcount(scalars) -> int:
     """Set bits of a raw 16-bit limb tensor."""
@@ -115,35 +96,20 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
-def _device_us(e):  # the attribute's name before and after torch 2.4
-    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-
 def device_ms(fn, reps):
     """Device time of one call of ``fn``: every kernel and copy that ``reps``
     back-to-back calls put on the card, summed by torch.profiler, over reps.
     Unlike events around the loop it does not count the gaps the host leaves.
-    The tracer now and then loses the records of a short window (a reading of
-    nothing, or of half the kernels), so a reading counts once a second one
-    agrees with it within 15%: the larger of the two is returned."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    A reading counts once a second one agrees with it within 15%
+    (``bench.profile_device``): the larger of the agreeing ones is returned."""
+    from baby_plonk_tpu_torch.bench import profile_device
 
     fn()
-    readings = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ms = sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3 / reps
-        for other in readings:
-            if ms > 0 and abs(ms - other) <= 0.15 * max(ms, other):
-                return max(ms, other)
-        readings.append(ms)
-    raise AssertionError(f"torch.profiler gave no two device times that agree: {readings}")
+    readings, agreed = profile_device(lambda: [fn() for _ in range(reps)], tries=6)
+    if not agreed:
+        raise AssertionError(f"torch.profiler gave no two device times that agree: {[r[0] for r in readings]}")
+    last = readings[-1][0]
+    return max(r[0] for r in readings if abs(r[0] - last) <= 0.15 * max(r[0], last)) / reps
 
 
 def host_us(fn, reps):
@@ -202,6 +168,9 @@ def check_kernels(dev, results):
     from baby_plonk_tpu_torch.curves import msm_host
     from baby_plonk_tpu_torch.ops import (g1_vec, kernels, limbs, msm, msm_fixed, msm_pippenger, ntt,
                                           prover_kernels, srs)
+    # the peaks and work counts behind every bound (shared with the bench)
+    from baby_plonk_tpu_torch.utils.roofline import (ADD_MULS, DOUBLE_MADS, FQ_BYTES, FQ_MUL, FQ_SQR, FR_BYTES,
+                                                     FR_MUL, FR_SQR, bound, horner_work)
 
     rng = np.random.default_rng(SEED)
     FR, FQ = limbs.FR, limbs.FQ
@@ -459,16 +428,6 @@ def check_kernels(dev, results):
     del t_p
     scal = random_field(rng, FR, (1, chunk), dev)
 
-    def horner_work(sc, G, windows):
-        """(bytes, multiply-adds) of one Horner launch: tables of the G groups,
-        scalars and partials once; per lane and step a doubling, and a mixed
-        addition where this run's index is not 0."""
-        P = sc.shape[1]
-        nonzero = sum(int((msm_fixed._table_index(sc, bit) != 0).sum()) for bit in range(msm_fixed.NBITS))
-        steps = P * G * msm_fixed.window_bits(windows) * windows
-        return (FQ_BYTES * 256 * G + FR_BYTES * P * 8 * G + 3 * FQ_BYTES * P * windows * G,
-                DOUBLE_MADS * steps + FQ_MUL * MIXED_MULS * nonzero)
-
     one_chunk = {
         "err": max_abs_err(msm_fixed.msm_fixed_horner(t_k, scal, 1), msm_fixed.msm_fixed_plain(t_k, scal, 1)),
         "ms": cuda_ms(lambda: msm_fixed.msm_fixed_horner(t_k, scal, 1), 5),
@@ -693,50 +652,6 @@ def msm_times(dev):
     print(json.dumps({"msm_times": out}), flush=True)
 
 
-def prove_times(dev, n=1 << 16):
-    """The NTT plans' building time, then a cold prove (plans built already)
-    and three warm ones on the fixed-base path, each with its round spans, in
-    a process that has run nothing else on the card."""
-    import torch
-
-    from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
-    from baby_plonk_tpu_torch.protocol import Program, Prover, generate_srs_device, mul_chain
-    from baby_plonk_tpu_torch.utils.metrics import get_metrics
-
-    from baby_plonk_tpu_torch.ops import ntt
-
-    # The first transform of a size and direction builds its plan (the cross
-    # twiddles and the sub-NTT's tables, Python ints packed on the host) and
-    # keeps it; the second finds it. Timed here, so the cold prove below no
-    # longer holds them: plan_s is what they add to a process's first prove.
-    out = {"plan_s": 0.0}
-    for log2n, inverse in ((16, False), (16, True), (18, False), (18, True)):
-        x = torch.zeros((16, 1, 1 << log2n), dtype=torch.int32, device=dev)
-        seconds = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ntt.ntt_device(x, inverse)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t)
-        out["plan_s"] += seconds[0] - seconds[1]
-        print(f"  ntt_device 2^{log2n} {'inverse' if inverse else 'forward'}: first call {seconds[0]:.4f} s, "
-              f"second {seconds[1]:.4f} s", flush=True)
-    setup = generate_srs_device(n + 6, TAU, dev)
-    constraints, witness, _ = mul_chain(n)
-    program = Program.from_strs(constraints, n)
-    engine = TorchEngine(dev)
-    for label in ("cold", "warm_1", "warm_2", "warm_3"):
-        get_metrics().reset()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        Prover(setup, program, engine).prove(witness)
-        torch.cuda.synchronize()
-        out[label + "_s"] = time.perf_counter() - t
-        print(f"  {label} prove {out[label + '_s']:.3f} s; spans: {get_metrics().report()}", flush=True)
-    print(json.dumps({"prove_times": out}), flush=True)
-
-
 def counts(counters):
     return {k: fn.launches for k, fn in counters.items()}
 
@@ -752,12 +667,12 @@ def main_path(dev, n, counters):
     import torch
 
     from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
-    from baby_plonk_tpu_torch.protocol import Program, Prover, Verifier, generate_srs_device, mul_chain
+    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, Verifier, mul_chain
     from baby_plonk_tpu_torch.utils.metrics import get_metrics
 
     zero_counts(counters)
     t = time.perf_counter()
-    setup = generate_srs_device(n + 6, TAU, dev)
+    setup = Setup.generate_srs_device(n + 6, TAU, cache=False, device=dev)
     torch.cuda.synchronize()
     phase("main: device SRS 2^16+6", t)
     t = time.perf_counter()
@@ -804,31 +719,9 @@ def profile_prove(prove, warm_s):
     and then loses the records of a window (half the kernels of a prove), so
     the prove is profiled until two totals agree within 15%, four times at
     most, and the larger reading is the one reported."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from baby_plonk_tpu_torch.bench import profile_device
 
-    from baby_plonk_tpu_torch.utils.metrics import get_metrics
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # starts the tracer
-        torch.zeros(1, device="cuda").sum().item()
-    readings = []  # (device ms, rows, wall ms, spans)
-    while len(readings) < 4:
-        get_metrics().reset()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prove()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-        # kernel and copy rows only: a CPU operator's row repeats its kernels' time
-        rows = [(e.key, e.count, _device_us(e) / 1e3) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
-        total = sum(r[2] for r in rows)
-        agreed = any(abs(total - other[0]) <= 0.15 * max(total, other[0]) for other in readings)
-        readings.append((total, rows, wall_ms, get_metrics().report()))
-        if agreed:
-            break
+    readings, _ = profile_device(prove, tries=4)
     print(f"  device ms of the profiled proves: {', '.join(f'{r[0]:.1f}' for r in readings)}", flush=True)
     device_ms, rows, wall_ms, spans = max(readings, key=lambda r: r[0])
     assert device_ms > 0, "torch.profiler recorded no device time"
@@ -847,7 +740,8 @@ def profile_prove(prove, warm_s):
 
 
 def variable_base_path(dev, counters, circuit):
-    """Phase 6. Returns the counts of the bit-serial and the Pippenger run."""
+    """Phase 6. Returns the counts of the bit-serial and the Pippenger run,
+    and the fixed-base proof's bytes."""
     import torch
 
     from baby_plonk_tpu_torch import config
@@ -890,24 +784,93 @@ def variable_base_path(dev, counters, circuit):
     assert proofs["bitserial"] == proofs["pippenger"] == proofs["fixed"], (
         "the three commit configurations give different proof bytes")
     print("  proof bytes equal: fixed-base == bit-serial == Pippenger (624 bytes, fixed blinding)", flush=True)
-    return run_counts["bitserial"], run_counts["pippenger"]
+    return run_counts["bitserial"], run_counts["pippenger"], proofs["fixed"]
 
 
 def cross_engine(dev):
     """Phase 5: byte-identical proofs against the host engine at 2^8."""
     from baby_plonk_tpu_torch.ops.engine import HostEngine
     from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
-    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, generate_srs_device, mul_chain
+    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, mul_chain
 
     n = 1 << 8
     constraints, witness, _ = mul_chain(n)
     program = Program.from_strs(constraints, n)
     blinding = list(range(1, 12))
-    port = Prover(generate_srs_device(n + 6, TAU, dev), program, TorchEngine(dev)).prove(
+    port = Prover(Setup.generate_srs_device(n + 6, TAU, cache=False, device=dev), program, TorchEngine(dev)).prove(
         witness, blinding=blinding)
     host_setup = Setup.generate_srs(n + 6, TAU, cache=False)
     host = Prover(host_setup, program, engine=HostEngine()).prove(witness, blinding=blinding)
     assert port.to_bytes() == host.to_bytes(), "port and host engine proofs differ"
+
+
+def setup_cache(dev, circuit, fixed_proof, cache_dir):
+    """Phase 7: ``Setup.generate_srs_device(..., cache=True)`` twice on an
+    empty cache directory: the first call computes and writes, the second
+    reads. The points read back equal phase 4's, tensor for tensor, and a
+    prove from them with phase 6's fixed blinding gives phase 6's
+    fixed-base proof bytes."""
+    import dataclasses
+
+    import torch
+
+    from baby_plonk_tpu_torch import config
+    from baby_plonk_tpu_torch.bench import seconds
+    from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+    from baby_plonk_tpu_torch.protocol import Prover, Setup
+    from baby_plonk_tpu_torch.protocol.setup import device_srs_path
+
+    setup, program, witness, _ = circuit
+    powers = setup.srs_len()
+    prev = config.get_config()
+    config.set_config(dataclasses.replace(prev, srs_cache_dir=cache_dir))
+    try:
+        path = device_srs_path(powers, TAU)
+        assert not os.path.exists(path), "the cache directory is not empty"
+        write_s, made = seconds(lambda: Setup.generate_srs_device(powers, TAU, cache=True, device=dev))
+        load_s, loaded = seconds(lambda: Setup.generate_srs_device(powers, TAU, cache=True, device=dev))
+        nbytes = os.path.getsize(path)
+    finally:
+        config.set_config(prev)
+    want = setup.device_points[str(dev)]
+    for other in (made, loaded):
+        assert all(torch.equal(a, b) for a, b in zip(other.device_points[str(dev)], want)), (
+            "the cached SRS differs from phase 4's")
+        assert other.x_2 == setup.x_2 and other.srs_len() == powers
+    print(f"  SRS of {powers} powers: computed and written {write_s:.4f} s, read back {load_s:.4f} s, "
+          f"{nbytes} bytes; equal to phase 4's tensor for tensor", flush=True)
+    proof = Prover(loaded, program, TorchEngine(dev)).prove(witness, blinding=list(range(1, 12)))
+    assert proof.to_bytes() == fixed_proof, "the prove from the cached SRS gives other proof bytes"
+    print("  prove from the SRS read back, fixed blinding: phase 6's fixed-base proof bytes", flush=True)
+
+
+#: every key of the bench's line
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "roofline_pct", "ntt_coeffs_per_s", "ntt_log2",
+              "prove_warm_s", "prove_log2", "verify_s", "verifier_preprocess_s", "msm_log2", "prove_warm_range_s",
+              "prove_cold_s", "plan_s", "tables_build_s", "srs_device_s", "srs_load_s", "srs_bytes", "round_ms",
+              "device_busy_share", "build_s", "device", "msm_variable_points_per_s")
+
+
+def bench_child(cache_dir):
+    """Phase 8: ``python -m baby_plonk_tpu_torch bench`` in a child process
+    at small sizes; its last stdout line parses as JSON with every key and
+    positive rates."""
+    env = dict(os.environ, BPT_BENCH_MSM_LOG2="12", BPT_BENCH_NTT_LOG2="16", BPT_BENCH_HOST_LOG2="8",
+               BPT_BENCH_PROVE_LOG2="12", BPT_BENCH_BITSERIAL="1", BPT_SRS_CACHE=cache_dir,
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    res = subprocess.run([sys.executable, "-m", "baby_plonk_tpu_torch", "bench"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    for line in res.stderr.splitlines():
+        print(f"  bench: {line}", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"the bench exited with {res.returncode}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    assert not missing, f"the bench's line lacks {missing}"
+    for k in ("value", "vs_baseline", "roofline_pct", "ntt_coeffs_per_s", "msm_variable_points_per_s"):
+        assert line[k] > 0, f"bench: {k} = {line[k]}"
+    assert line["metric"] == "msm_g1_points_per_s" and line["msm_log2"] == 12 and line["prove_log2"] == 12
+    print(f"  bench line: {json.dumps(line)}", flush=True)
 
 
 def main():
@@ -940,8 +903,8 @@ def main():
     print(f"  native Keccak (transcript hashing) loaded: {native.available()}", flush=True)
     phase("2 build", t)
 
-    if "--msm-times" in sys.argv or "--prove-times" in sys.argv:
-        (msm_times if "--msm-times" in sys.argv else prove_times)(dev)
+    if "--msm-times" in sys.argv:
+        msm_times(dev)
         print(f"card: {card}", flush=True)
         return
 
@@ -999,10 +962,23 @@ def main():
 
     # 6. variable-base path
     t = time.perf_counter()
-    vb_counts = dict(zip(("bitserial", "pippenger"), variable_base_path(dev, counters, circuit)))
+    *runs, fixed_proof = variable_base_path(dev, counters, circuit)
+    vb_counts = dict(zip(("bitserial", "pippenger"), runs))
     for label, c in vb_counts.items():
         print(f"  launches, {label} prove: {json.dumps(c)}", flush=True)
     phase("6 variable-base path", t)
+
+    # 7. setup cache and 8. bench, both on a fresh cache directory
+    cache_dir = tempfile.mkdtemp(prefix="bpt_srs_cache_")
+    try:
+        t = time.perf_counter()
+        setup_cache(dev, circuit, fixed_proof, cache_dir)
+        phase("7 setup cache", t)
+        t = time.perf_counter()
+        bench_child(cache_dir)
+        phase("8 bench", t)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
 
     for banned in ("jax", "jaxlib", "baby_plonk_tpu"):
         assert not any(m == banned or m.startswith(banned + ".") for m in sys.modules), (

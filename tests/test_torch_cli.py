@@ -1,5 +1,5 @@
 """The port's CLI: ``demo`` and ``warmup`` prove and verify on the CPU when
-asked to, and raise without a card when not."""
+asked to, and raise without a card when not; ``bench`` raises without one."""
 import os
 import subprocess
 import sys
@@ -24,14 +24,18 @@ def test_demo_cpu_subprocess():
     assert "proof: 624 bytes" in out.stdout
 
 
-def test_warmup_cpu_small(capsys):
+def test_warmup_cpu_small(capsys, tmp_path, monkeypatch):
+    from baby_plonk_tpu_torch import config
+
+    monkeypatch.setattr(config, "_config", config.Config(srs_cache_dir=str(tmp_path)))
     assert cli.main(["warmup", "--log2", "3", "--cpu"]) == 0
     out = capsys.readouterr().out
     assert "warmup n=2^3 device=cpu" in out and "ok=True" in out
     assert "warmup.srs=" in out and "warmup.prove=" in out
+    assert len(list(tmp_path.glob("*.npz"))) == 1, "warmup fills the device-SRS cache"
 
 
-@pytest.mark.parametrize("argv", [["demo"], ["warmup", "--log2", "3"]], ids=["demo", "warmup"])
+@pytest.mark.parametrize("argv", [["demo"], ["warmup", "--log2", "3"], ["bench"]], ids=["demo", "warmup", "bench"])
 def test_without_cpu_flag_needs_a_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

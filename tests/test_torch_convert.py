@@ -50,7 +50,7 @@ def test_srs_limbs_round_trip(jax_setup):
     (pts,) = setup.device_points.values()
     assert affine(g1_vec.points_from_device(pts)) == affine(jax_setup.powers_of_x)
     with pytest.raises(ValueError):
-        convert.setup_from_limbs(limbs_j[:2], convert.g2_coords(jax_setup.x_2))
+        convert.setup_from_limbs(limbs_j[:2], convert.g2_coords(jax_setup.x_2), "cpu")
 
 
 def test_x2_forms(jax_setup):

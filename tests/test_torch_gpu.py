@@ -1,6 +1,8 @@
 """Card-only checks of the port's CUDA kernels against their plain
 versions at small shapes (the full-size checks are chip_smoke.py's).
 They skip where torch.cuda.is_available() is false."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -267,3 +269,19 @@ def test_sub_ntt_shared_memory_plan(dev):
     x = limbs.FR.pack_mont(field_ints(70, fr.Q, 1024 * 8), dev).reshape(16, 1, 1024, 8)
     pw = ntt.sub_twiddles(1024, False, dev)
     assert torch.equal(kernels.ntt_sub(x, False).long(), kernels.ntt_sub_plain(x, pw))
+
+
+def test_device_srs_cache_round_trip(dev, tmp_path, monkeypatch):
+    """The device SRS at 2^10 through its disk cache on the card: written by
+    the first call, read back by the second to equal tensors on the card."""
+    from baby_plonk_tpu_torch import config
+    from baby_plonk_tpu_torch.protocol import Setup
+    from baby_plonk_tpu_torch.protocol.setup import device_srs_path
+
+    monkeypatch.setattr(config, "_config", config.Config(srs_cache_dir=str(tmp_path)))
+    made = Setup.generate_srs_device(1 << 10, 4242, cache=True, device=dev)
+    assert [p.name for p in tmp_path.iterdir()] == [os.path.basename(device_srs_path(1 << 10, 4242))]
+    loaded = Setup.generate_srs_device(1 << 10, 4242, cache=True, device=dev)
+    got, want = loaded.device_points[str(dev)], made.device_points[str(dev)]
+    assert all(g.device == want[0].device and torch.equal(g, w) for g, w in zip(got, want))
+    assert loaded.x_2 == made.x_2

@@ -180,6 +180,27 @@ def test_verifier_accepts_golden_bytes(name):
     assert not Verifier(setup, program, Proof.from_bytes(bytes(bad)), engine=engine).verify(public)
 
 
+def test_hash_to_curve_and_h2c_data():
+    """The suite constants are equal, and so are the maps and the cofactor
+    clearing on a few field elements."""
+    (jd, td), (jh, th) = both("curves.h2c_data"), both("curves.hash_to_curve")
+    consts = [{k: v for k, v in vars(m).items() if k.isupper()} for m in (jd, td)]
+    assert consts[0] == consts[1] and len(consts[0]) == 14
+    assert (jh.H_EFF_G1, jh.H_EFF_G2) == (th.H_EFF_G1, th.H_EFF_G2)
+    for i in range(2):
+        msg = bytes([i]) * 5
+        assert jh.expand_message_xmd(msg, b"dst", 80) == th.expand_message_xmd(msg, b"dst", 80)
+        assert jh.expand_message_xof(msg, b"dst", 80) == th.expand_message_xof(msg, b"dst", 80)
+        u = th.hash_to_field_fq(msg, b"dst", 1)[0]
+        assert u == jh.hash_to_field_fq(msg, b"dst", 1)[0]
+        assert jh.clear_cofactor_g1(jh.map_to_curve_g1(u)).to_compressed() == (
+            th.clear_cofactor_g1(th.map_to_curve_g1(u)).to_compressed())
+        (v,), (w,) = th.hash_to_field_fq2(msg, b"dst", 1), jh.hash_to_field_fq2(msg, b"dst", 1)
+        assert (v.c0, v.c1) == (w.c0, w.c1)
+        assert jh.clear_cofactor_g2(jh.map_to_curve_g2(w)).to_compressed() == (
+            th.clear_cofactor_g2(th.map_to_curve_g2(v)).to_compressed())
+
+
 def test_config_defaults(monkeypatch):
     for var in ("BPT_ENGINE", "BPT_MSM", "BPT_MSM_FIXED", "BPT_DEBUG_ASSERTS", "BPT_SRS_CACHE"):
         monkeypatch.delenv(var, raising=False)

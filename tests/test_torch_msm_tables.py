@@ -21,7 +21,7 @@ def test_build_tables_match_jax():
     for j, t in zip(convert.srs_to_numpy(tpts), jpts):
         assert np.array_equal(j, np.asarray(t))
     want = tuple(np.asarray(t) for t in jmf._build_tables(*jpts))  # (24, 8, 256) x2
-    got = msm_fixed.build_tables(*convert.srs_to_torch([np.asarray(c) for c in jpts]))
+    got = msm_fixed.build_tables(*convert.srs_to_torch([np.asarray(c) for c in jpts], "cpu"))
     assert got.shape == (8, 256, 24) and got.dtype == torch.int32
     for g, w in zip(convert.tables_to_numpy(got), want):
         assert g.shape == (24, 8, 256)
@@ -32,7 +32,7 @@ def test_build_tables_match_jax():
     x, y = (g1_vec.FQ.unpack_mont(t[:, 3, 4].reshape(24, 1))[0] for t in (tx, ty))
     assert pts[8 * 3 + 2].to_affine() == (x, y)
     # the JAX tables cross into the port's layout and back unchanged
-    assert torch.equal(convert.tables_to_torch(want), got)
+    assert torch.equal(convert.tables_to_torch(want, "cpu"), got)
 
 
 def test_pack_unpack_roundtrip():

@@ -6,7 +6,7 @@ import numpy as np
 from baby_plonk_tpu.ops import srs as jsrs
 from baby_plonk_tpu_torch import convert
 from baby_plonk_tpu_torch.ops import g1_vec, srs
-from baby_plonk_tpu_torch.protocol.setup import Setup, generate_srs_device
+from baby_plonk_tpu_torch.protocol.setup import Setup
 
 from torch_port_util import one_torch_thread  # noqa: F401  (fixture)
 
@@ -24,7 +24,7 @@ def test_powers_of_tau_match_jax_and_host():
 
 
 def test_generate_srs_device_setup():
-    setup = generate_srs_device(5, 777, "cpu")
+    setup = Setup.generate_srs_device(5, 777, cache=False, device="cpu")
     host = Setup.generate_srs(5, 777, cache=False)
     assert setup.powers_of_x is None and setup.srs_len() == 5
     assert setup.x_2 == host.x_2
