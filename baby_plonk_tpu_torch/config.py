@@ -15,7 +15,8 @@ from dataclasses import dataclass, field
 
 @dataclass
 class Config:
-    #: "torch" (TorchEngine on the CUDA device) or "host" (exact Python oracle)
+    #: "torch" (TorchEngine on the CUDA device), "mesh" (MeshEngine, the
+    #: prover sharded over the cards) or "host" (exact Python oracle)
     engine: str = field(default_factory=lambda: os.environ.get("BPT_ENGINE", "torch"))
     #: directory for cached SRS pickles (protocol/setup.py)
     srs_cache_dir: str = field(
@@ -30,7 +31,8 @@ class Config:
     debug_asserts: bool = field(
         default_factory=lambda: os.environ.get("BPT_DEBUG_ASSERTS", "1") != "0"
     )
-    #: device count for the distributed path (None = all visible devices)
+    #: shards of the mesh engine (parallel/mesh.py::make_mesh; shard d on
+    #: card d mod the card count); None = one per visible card
     mesh_devices: int | None = field(
         default_factory=lambda: (
             int(os.environ["BPT_MESH_DEVICES"])

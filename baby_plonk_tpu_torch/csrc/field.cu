@@ -396,11 +396,14 @@ __global__ void grand_product_fg_kernel(const int32_t* __restrict__ a, const int
 // alpha^2 first-row, times 1/Z_H, per lane of the 4n coset domain.
 // live: (16, 5, m) rows a b c z pi; fixed: (16, 9, m) rows s1 s2 s3 ql qr qm
 // qo qc l1; zh_inv, dpow: (16, m); sc: (16, 6) = beta, gamma, alpha, alpha^2,
-// k1, k2; z(w x) is z read ``shift`` lanes ahead (mod m). 16 rows in, 1 out.
+// k1, k2; z(w x) is read ``shift`` lanes ahead (mod m) in zw (limb stride
+// zw_stride): live's z row on one device, another shard's z row on a mesh.
+// 16 rows in (17 with a zw row of its own), 1 out.
 __global__ void round3_combine_kernel(const int32_t* __restrict__ live, const int32_t* __restrict__ fixed,
                                       const int32_t* __restrict__ zh_inv, const int32_t* __restrict__ dpow,
-                                      const int32_t* __restrict__ sc, int32_t* __restrict__ out,
-                                      int64_t m, int64_t shift) {
+                                      const int32_t* __restrict__ sc, const int32_t* __restrict__ zw,
+                                      int64_t zw_stride, int32_t* __restrict__ out, int64_t m,
+                                      int64_t shift) {
   const int64_t ls = 5 * m, fs = 9 * m;
   uint32_t beta[8], gamma[8];
   load<Fr>(beta, sc + 0, 6);
@@ -449,7 +452,7 @@ __global__ void round3_combine_kernel(const int32_t* __restrict__ live, const in
     load<Fr>(u, fixed + 2 * m + i, fs);
     rlc(t, c, u, beta, gamma);
     mul<Fr>(a, a, t);
-    load<Fr>(u, live + 3 * m + (i + shift) % m, ls);
+    load<Fr>(u, zw + (i + shift) % m, zw_stride);
     mul<Fr>(a, a, u);
     sub<Fr>(perm, perm, a);
     load<Fr>(u, sc + 2, 6);
@@ -563,12 +566,14 @@ extern "C" int bpt_grand_product_fg(const void* a, const void* b, const void* c,
   return (int)cudaGetLastError();
 }
 
+// z(w x) is read from zw (16, m) where it is given, else from live's z row.
 extern "C" int bpt_round3_combine(const void* live, const void* fixed, const void* zh_inv,
-                                  const void* dpow, const void* sc, void* out, long long m,
-                                  long long shift, void* stream) {
+                                  const void* dpow, const void* sc, const void* zw, void* out,
+                                  long long m, long long shift, void* stream) {
   const int threads = 128;
+  const int32_t* zrow = zw ? (const int32_t*)zw : (const int32_t*)live + 3 * m;
   round3_combine_kernel<<<grid_for(m, threads), threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)live, (const int32_t*)fixed, (const int32_t*)zh_inv, (const int32_t*)dpow,
-      (const int32_t*)sc, (int32_t*)out, m, shift);
+      (const int32_t*)sc, zrow, zw ? m : 5 * m, (int32_t*)out, m, shift);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,7 @@
 //    holds w^(off m / (2 len)), off < len, contiguous), so a warp's twiddle
 //    reads are contiguous too.
 //  * The block asks for its shared memory as dynamic shared memory above the
-//    48 KB default (opted in once, up to 227 KB), so m C is not capped at
+//    48 KB default (opted in once a device, up to 227 KB), so m C is not capped at
 //    1024 elements: m = 1024 runs with C = 4.
 //  * Gentleman-Sande decimation in frequency, in place: the rows end in
 //    bit-reversed order in shared memory, and the store writes row r at
@@ -168,12 +168,17 @@ extern "C" int bpt_ntt_sub(const void* in, void* out, const void* tw, const void
                            long long in_row, long long in_cq, long long out_row, long long out_cq,
                            long long cross_cols, long long cross_div, long long C, int natural,
                            void* stream) {
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t rc = cudaFuncSetAttribute(ntt_sub_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          232448);
+  // The opt-in to more than 48 KB of shared memory holds for the device
+  // that was current when it was made: one flag a device.
+  static bool opted_in[64] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    rc = cudaFuncSetAttribute(ntt_sub_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (rc != cudaSuccess) return (int)rc;
-    opted_in = true;
+    opted_in[dev] = true;
   }
   SubNtt p;
   p.in = (const int32_t*)in;

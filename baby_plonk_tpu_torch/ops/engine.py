@@ -1,10 +1,12 @@
 """Compute-engine interface: the prover's hot paths behind one contract.
 
-Counterpart of ``baby_plonk_tpu/ops/engine.py``. Two implementations:
+Counterpart of ``baby_plonk_tpu/ops/engine.py``. Three implementations:
   * HostEngine  — exact Python-int oracle (this module), which the port
     is held against;
   * TorchEngine — PyTorch tensors and this package's CUDA kernels
-    (ops/torch_engine.py), byte-identical proofs.
+    (ops/torch_engine.py), byte-identical proofs;
+  * MeshEngine  — TorchEngine sharded over a device mesh
+    (parallel/mesh_engine.py), byte-identical proofs.
 
 Contract (all Fr values are canonical Python ints on the boundary):
   intt(values)                          Lagrange -> monomial coefficients
@@ -110,7 +112,8 @@ _default_engine: object | None = None
 
 def get_default_engine():
     """``TorchEngine("cuda")`` (raises without a card) unless BPT_ENGINE
-    selects "host"."""
+    selects "host" or "mesh" (``MeshEngine`` over ``make_mesh`` of
+    ``Config.mesh_devices`` shards, on the cards)."""
     global _default_engine
     if _default_engine is None:
         from ..config import get_config
@@ -122,8 +125,13 @@ def get_default_engine():
             _default_engine = TorchEngine("cuda")
         elif name == "host":
             _default_engine = HostEngine()
+        elif name == "mesh":
+            from ..parallel.mesh import make_mesh
+            from ..parallel.mesh_engine import MeshEngine
+
+            _default_engine = MeshEngine(make_mesh(get_config().mesh_devices))
         else:
-            raise ValueError(f"unknown engine {name!r}: expected 'torch' or 'host'")
+            raise ValueError(f"unknown engine {name!r}: expected 'torch', 'host' or 'mesh'")
     return _default_engine
 
 

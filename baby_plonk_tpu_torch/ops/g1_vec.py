@@ -149,7 +149,7 @@ def padd(p, q):
     n = p[0][0].numel()
     if n:
         kernels.launch(
-            "bpt_g1_padd", *(kernels.ptr(c) for c in (*p, *q, *out)), n, kernels.stream(dev)
+            "bpt_g1_padd", dev, *(kernels.ptr(c) for c in (*p, *q, *out)), n
         )
         padd.launches += 1
     return out
@@ -171,7 +171,7 @@ def pdouble(p):
     n = p[0][0].numel()
     if n:
         kernels.launch(
-            "bpt_g1_pdouble", *(kernels.ptr(c) for c in (*p, *out)), n, kernels.stream(dev)
+            "bpt_g1_pdouble", dev, *(kernels.ptr(c) for c in (*p, *out)), n
         )
         pdouble.launches += 1
     return out

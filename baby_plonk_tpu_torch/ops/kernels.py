@@ -53,7 +53,7 @@ _SIGNATURES = {
     "bpt_field_scan": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P],
     "bpt_field_pow_table": [ctypes.c_int, _P, _P, _I, _P],
     "bpt_grand_product_fg": [_P] * 10 + [_I, _P],
-    "bpt_round3_combine": [_P] * 6 + [_I, _I, _P],
+    "bpt_round3_combine": [_P] * 7 + [_I, _I, _P],
     "bpt_ntt_sub": [_P, _P, _P, _P] + [_I] * 11 + [ctypes.c_int, _P],
     "bpt_g1_padd": [_P] * 9 + [_I, _P],
     "bpt_g1_pdouble": [_P] * 6 + [_I, _P],
@@ -146,19 +146,25 @@ def library():
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name``; raise if the launch reported an error."""
-    rc = getattr(library(), name)(*args)
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``name`` with ``args`` and the current stream of
+    ``device`` (the last parameter of every entry point), with ``device``
+    the thread's current device: a kernel launches on the current device,
+    so a tensor of another card needs the switch. The switch is made only
+    where the devices differ. Raise if the launch reported an error."""
+    fn = getattr(library(), name)
+    s = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, s)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, s)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
-
-
-def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check_cuda(*tensors: torch.Tensor, dtype=torch.int32) -> torch.device:
@@ -256,9 +262,9 @@ def _launch_sub(src, dst, inverse: bool, K: int, m: int, ncols: int, inner: int,
     cols = _columns_per_block(m, ncols)
     if sub_smem_bytes(m, cols) > SMEM_BLOCK:
         raise ValueError(f"sub-NTT of length {m} does not fit a block's shared memory")
-    launch("bpt_ntt_sub", ptr(src), ptr(dst), ptr(tw), None if cross is None else ptr(cross),
+    launch("bpt_ntt_sub", dev, ptr(src), ptr(dst), ptr(tw), None if cross is None else ptr(cross),
            K, m, ncols, inner, in_row, in_cq, out_row, out_cq,
-           0 if cross is None else cross.shape[-1], cross_div, cols, int(natural), stream(dev))
+           0 if cross is None else cross.shape[-1], cross_div, cols, int(natural))
     ntt_sub.launches += 1
 
 

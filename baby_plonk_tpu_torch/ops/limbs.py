@@ -285,9 +285,9 @@ def _launch_op(counter, spec: FieldSpec, op: int, a, b=None):
         n = math.prod(out_batch)
     if n:
         kernels.launch(
-            "bpt_field_op", spec.cid, op,
+            "bpt_field_op", dev, spec.cid, op,
             kernels.ptr(a), a_div, a_mod, kernels.ptr(b), b_div, b_mod,
-            kernels.ptr(out), n, kernels.stream(dev),
+            kernels.ptr(out), n,
         )
         counter.launches += 1
     return out
@@ -363,9 +363,9 @@ def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     n = math.prod(out_batch)
     if n:
         kernels.launch(
-            "bpt_field_select", L, kernels.ptr(cond), bc[0], bc[1],
+            "bpt_field_select", dev, L, kernels.ptr(cond), bc[0], bc[1],
             kernels.ptr(a), a_div, a_mod, kernels.ptr(b), b_div, b_mod,
-            kernels.ptr(out), n, kernels.stream(dev),
+            kernels.ptr(out), n,
         )
         select.launches += 1
     return out
@@ -417,8 +417,8 @@ def mont_pow_fixed(spec: FieldSpec, a, exponent: int, plain: bool = False):
     n = out[0].numel()
     if n:
         words = (ctypes.c_uint * _POW_WORDS)(*((exponent >> (32 * i)) & 0xFFFFFFFF for i in range(_POW_WORDS)))
-        kernels.launch("bpt_field_pow", spec.cid, kernels.ptr(a), kernels.ptr(out), n,
-                       words, _POW_WORDS, kernels.stream(dev))
+        kernels.launch("bpt_field_pow", dev, spec.cid, kernels.ptr(a), kernels.ptr(out), n,
+                       words, _POW_WORDS)
         mont_pow_fixed.launches += 1
     return out
 
@@ -489,9 +489,9 @@ def field_scan(spec: FieldSpec, x: torch.Tensor, op: str, reverse: bool = False,
     tiles = -(-n // _SCAN_TILE)
     scratch = torch.empty((2, spec.L, rows, tiles), dtype=torch.int32, device=dev) if tiles > 1 else None
     kernels.launch(
-        "bpt_field_scan", spec.cid, _SCAN_OPS[op], kernels.ptr(x), kernels.ptr(out), kernels.ptr(total),
+        "bpt_field_scan", dev, spec.cid, _SCAN_OPS[op], kernels.ptr(x), kernels.ptr(out), kernels.ptr(total),
         kernels.ptr(scratch[0]) if tiles > 1 else None, kernels.ptr(scratch[1]) if tiles > 1 else None,
-        rows, n, int(reverse), int(exclusive), kernels.stream(dev),
+        rows, n, int(reverse), int(exclusive),
     )
     field_scan.launches += 1
     return out, total
@@ -518,8 +518,7 @@ def pow_table(spec: FieldSpec, z: torch.Tensor, n: int, plain: bool = False) -> 
         return _pow_table_plain(spec, z, n).to(z.dtype)
     dev = kernels.check_cuda(z)
     out = torch.empty((spec.L, n), dtype=torch.int32, device=dev)
-    kernels.launch("bpt_field_pow_table", spec.cid, kernels.ptr(z.contiguous()), kernels.ptr(out), n,
-                   kernels.stream(dev))
+    kernels.launch("bpt_field_pow_table", dev, spec.cid, kernels.ptr(z.contiguous()), kernels.ptr(out), n)
     pow_table.launches += 1
     return out
 

@@ -94,8 +94,8 @@ def msm_partials(points, scalars, tile: int | None = None):
     points = tuple(c.contiguous() for c in points)
     scalars = scalars.contiguous()
     out = tuple(torch.empty((24, -(-n // t)), dtype=torch.int32, device=dev) for _ in range(3))
-    kernels.launch("bpt_msm_bitserial", *(kernels.ptr(c) for c in points), kernels.ptr(scalars),
-                   n, t, *(kernels.ptr(c) for c in out), kernels.stream(dev))
+    kernels.launch("bpt_msm_bitserial", dev, *(kernels.ptr(c) for c in points), kernels.ptr(scalars),
+                   n, t, *(kernels.ptr(c) for c in out))
     msm_partials.launches += 1
     return out
 

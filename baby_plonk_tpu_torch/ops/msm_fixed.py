@@ -107,11 +107,9 @@ def build_tables(px, py, pz):
     px, py, pz = (c.contiguous() for c in (px, py, pz))
     scratch = tuple(torch.empty((24, G, NB), dtype=torch.int32, device=dev) for _ in range(3))
     packed = torch.empty((G, NB, ENTRY), dtype=torch.int32, device=dev)
-    s = kernels.stream(dev)
-    kernels.launch("bpt_msm_build_tables", *(kernels.ptr(c) for c in (px, py, pz)), G,
-                   *(kernels.ptr(c) for c in scratch), s)
-    kernels.launch("bpt_msm_normalize_tables", *(kernels.ptr(c) for c in scratch), G,
-                   kernels.ptr(packed), s)
+    kernels.launch("bpt_msm_build_tables", dev, *(kernels.ptr(c) for c in (px, py, pz)), G,
+                   *(kernels.ptr(c) for c in scratch))
+    kernels.launch("bpt_msm_normalize_tables", dev, *(kernels.ptr(c) for c in scratch), G, kernels.ptr(packed))
     build_tables.launches += 1
     return packed
 
@@ -199,8 +197,8 @@ def msm_fixed_horner(packed, scalars, windows: int = 1):
     packed, scalars = packed.contiguous(), scalars.contiguous()
     out = tuple(torch.empty((24, P, windows, G), dtype=torch.int32, device=dev) for _ in range(3))
     if P * G:
-        kernels.launch("bpt_msm_fixed", kernels.ptr(packed), kernels.ptr(scalars), P, G, windows, S,
-                       *(kernels.ptr(c) for c in out), kernels.stream(dev))
+        kernels.launch("bpt_msm_fixed", dev, kernels.ptr(packed), kernels.ptr(scalars), P, G, windows, S,
+                       *(kernels.ptr(c) for c in out))
         msm_fixed_horner.launches += 1
         msm_fixed_horner.lanes += P * windows * G
     return out
@@ -238,8 +236,8 @@ def msm_join(win, S: int):
     win = tuple(c.contiguous() for c in win)
     out = tuple(torch.empty((24, P), dtype=torch.int32, device=dev) for _ in range(3))
     if P:
-        kernels.launch("bpt_msm_join", *(kernels.ptr(c) for c in win), P, W, S,
-                       *(kernels.ptr(c) for c in out), kernels.stream(dev))
+        kernels.launch("bpt_msm_join", dev, *(kernels.ptr(c) for c in win), P, W, S,
+                       *(kernels.ptr(c) for c in out))
         msm_join.launches += 1
     return out
 
@@ -281,10 +279,12 @@ class FixedBaseTables:
             ))
         return self._tables
 
-    def msm_many(self, scalars_list, windows: int | None = None):
+    def msm_many(self, scalars_list, windows: int | None = None, per_chunk: bool = False):
         """MSMs of several raw scalar arrays (16, k_i), k_i <= n, against the
         first k_i points. ``windows``: the split of the 255 bits (default:
-        ``windows_for`` the launch). Returns (X, Y, Z) of shape (24, P)."""
+        ``windows_for`` the launch). Returns (X, Y, Z) of shape (24, P), or
+        with ``per_chunk`` the sum of each chunk of points apart, (24, P, C)
+        (the mesh's shards that share a device, one chunk a shard)."""
         P = len(scalars_list)
         k = max(s.shape[-1] for s in scalars_list)
         assert k <= self.n, (k, self.n)
@@ -304,11 +304,14 @@ class FixedBaseTables:
         if rest:
             tail = g1_vec.tree_reduce(tuple(c[..., full * gc :] for c in part))
             sums.append(tuple(c.unsqueeze(-1) for c in tail))
-        per_chunk = tuple(torch.cat(cs, dim=-1) for cs in zip(*sums))
-        win = g1_vec.combine_partials(per_chunk)  # (24, P, W)
-        if W == 1:
-            return tuple(c[..., 0] for c in win)
-        return msm_join(win, window_bits(W))
+        chunks = tuple(torch.cat(cs, dim=-1) for cs in zip(*sums))  # (24, P, W, C)
+        C = chunks[0].shape[-1]
+        if per_chunk:  # each chunk joined apart: P C sets of W window sums
+            win = tuple(c.movedim(-1, -2).reshape(24, P * C, W) for c in chunks)
+        else:
+            win = g1_vec.combine_partials(chunks)  # (24, P, W)
+        out = tuple(c[..., 0] for c in win) if W == 1 else msm_join(win, window_bits(W))
+        return tuple(c.reshape(24, P, C) for c in out) if per_chunk else out
 
     def msm(self, scalars, windows: int | None = None):
         return tuple(c[:, 0] for c in self.msm_many([scalars], windows))

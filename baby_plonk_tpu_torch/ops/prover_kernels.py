@@ -95,18 +95,18 @@ def grand_product_fg(a, b, c, s1, s2, s3, roots, beta: int, gamma: int, k1: int,
         raise ValueError("grand_product_fg: rows must all be (16, n)")
     rows = [r.contiguous() for r in rows]
     f, g = torch.empty_like(rows[0]), torch.empty_like(rows[0])
-    kernels.launch("bpt_grand_product_fg", *(kernels.ptr(r) for r in rows), kernels.ptr(sc),
-                   kernels.ptr(f), kernels.ptr(g), n, kernels.stream(dev))
+    kernels.launch("bpt_grand_product_fg", dev, *(kernels.ptr(r) for r in rows), kernels.ptr(sc),
+                   kernels.ptr(f), kernels.ptr(g), n)
     grand_product_fg.launches += 1
     return f, g
 
 
-def _round3_combine_plain(live, fixed, zh_inv, dpow, sc, shift, plain=True):
+def _round3_combine_plain(live, fixed, zh_inv, dpow, sc, shift, zw=None, plain=True):
     mm, add, sub = _ops(plain)
     aE, bE, cE, zE, piE = live.unbind(1)
     s1E, s2E, s3E, qlE, qrE, qmE, qoE, qcE, l1E = fixed.unbind(1)
     beta, gamma, alpha, alpha2, k1, k2 = (sc[:, i : i + 1] for i in range(6))
-    zwE = torch.roll(zE, -shift, dims=-1)
+    zwE = torch.roll(zE if zw is None else zw, -shift, dims=-1)
 
     def rlc(x, y):
         return add(add(x, mm(beta, y)), gamma)
@@ -124,33 +124,41 @@ def _round3_combine_plain(live, fixed, zh_inv, dpow, sc, shift, plain=True):
     return mm(allE, zh_inv)
 
 
-def round3_combine(live, fixed, zh_inv, dpow, sc, shift: int, plain: bool = False):
+def round3_combine(live, fixed, zh_inv, dpow, sc, shift: int, zw=None, plain: bool = False):
     """Round 3's pointwise combination on the coset, (16, m) Montgomery:
     (gate + alpha perm + alpha^2 first-row) / Z_H. ``live`` (16, 5, m): the
     evaluations of a, b, c, z, pi; ``fixed`` (16, 9, m): s1, s2, s3, ql, qr,
     qm, qo, qc, l1; ``sc`` (16, 6): beta, gamma, alpha, alpha^2, k1, k2;
-    z(w x) is z read ``shift`` lanes ahead. On CUDA tensors one launch, 16
-    rows read and one written (bound: bytes), where the unfused expression is
-    about 45 launches and a rolled copy of z."""
-    ops = (live, fixed, zh_inv, dpow, sc)
+    z(w x) is read ``shift`` lanes ahead (wrapping) in ``zw`` (16, m) where
+    it is given, else in live's z row (one device; a shard of the mesh may
+    need another shard's z). On CUDA tensors one launch, 16 rows read (17
+    with ``zw``) and one written (bound: bytes), where the unfused
+    expression is about 45 launches and a rolled copy of z. ``launches``
+    counts the launches without ``zw``, ``launches_zw`` those with it."""
+    ops = (live, fixed, zh_inv, dpow, sc) + (() if zw is None else (zw,))
     if plain or kernels.on_cpu(*ops):
-        return _round3_combine_plain(*ops, shift, plain)
+        return _round3_combine_plain(live, fixed, zh_inv, dpow, sc, shift, zw, plain)
     dev = kernels.check_cuda(*ops)
     m = live.shape[-1]
     if (live.shape, fixed.shape, zh_inv.shape, dpow.shape, sc.shape) != (
-            (16, 5, m), (16, 9, m), (16, m), (16, m), (16, 6)):
+            (16, 5, m), (16, 9, m), (16, m), (16, m), (16, 6)) or (zw is not None and zw.shape != (16, m)):
         raise ValueError("round3_combine: bad operand shapes")
-    live, fixed, zh_inv, dpow, sc = (t.contiguous() for t in ops)
+    live, fixed, zh_inv, dpow, sc = (t.contiguous() for t in ops[:5])
+    zw = None if zw is None else zw.contiguous()
     out = torch.empty((16, m), dtype=torch.int32, device=dev)
-    kernels.launch("bpt_round3_combine", kernels.ptr(live), kernels.ptr(fixed), kernels.ptr(zh_inv),
-                   kernels.ptr(dpow), kernels.ptr(sc), kernels.ptr(out), m, shift % m,
-                   kernels.stream(dev))
-    round3_combine.launches += 1
+    kernels.launch("bpt_round3_combine", dev, kernels.ptr(live), kernels.ptr(fixed), kernels.ptr(zh_inv),
+                   kernels.ptr(dpow), kernels.ptr(sc), None if zw is None else kernels.ptr(zw),
+                   kernels.ptr(out), m, shift % m)
+    if zw is None:
+        round3_combine.launches += 1
+    else:
+        round3_combine.launches_zw += 1
     return out
 
 
 grand_product_fg.launches = 0
 round3_combine.launches = 0
+round3_combine.launches_zw = 0
 
 
 @functools.lru_cache(maxsize=4)

@@ -1,6 +1,7 @@
 """Powers of tau on the device: the G1 half of the KZG SRS, column i =
 tau^i * G (counterpart of ``baby_plonk_tpu/ops/srs.py``:
-``_fixed_base_kernel`` :23-41 and ``powers_of_tau_device`` :49-82).
+``_fixed_base_kernel`` :23-41, ``powers_of_tau_device`` :49-82 and
+``powers_of_tau_sharded`` :85-114).
 
 The scalars tau^i are host field multiplies; the 255-step double-and-add
 of every lane is the kernel ``bpt_powers_of_tau`` (csrc/srs.cu). A
@@ -42,8 +43,8 @@ def powers_of_tau(scalars, base):
     scalars, base = scalars.contiguous(), base.contiguous()
     out = tuple(torch.empty((24, n), dtype=torch.int32, device=dev) for _ in range(3))
     if n:
-        kernels.launch("bpt_powers_of_tau", kernels.ptr(scalars), kernels.ptr(base), n,
-                       *(kernels.ptr(c) for c in out), kernels.stream(dev))
+        kernels.launch("bpt_powers_of_tau", dev, kernels.ptr(scalars), kernels.ptr(base), n,
+                       *(kernels.ptr(c) for c in out))
         powers_of_tau.launches += 1
     return out
 
@@ -89,3 +90,17 @@ def setup_points(setup, device):
             raise ValueError("setup has neither host powers nor a port device SRS")
         cache[key] = pts
     return pts
+
+
+def powers_of_tau_sharded(powers: int, tau: int, mesh):
+    """The powers of tau block-sharded over a mesh (counterpart of
+    ``baby_plonk_tpu/ops/srs.py::powers_of_tau_sharded``): the kernel is
+    lane-wise, so each shard computes its own block of tau^i G with no
+    collective. ``powers`` is padded up to a multiple of the shard count
+    with zero scalars (the identity). Returns one (X, Y, Z) of (24, N/D)
+    a shard."""
+    N = -(-powers // mesh.D) * mesh.D
+    scalars = tau_scalars(powers, tau, mesh.home)
+    scalars = torch.cat([scalars, scalars.new_zeros((16, N - powers))], dim=-1)
+    base = generator_base(mesh.home)
+    return [powers_of_tau(sc, base.to(sc.device)) for sc in mesh.shard(scalars)]

@@ -96,6 +96,9 @@ class Setup:
         #: fixed-base commit tables, str(device) -> FixedBaseTables
         #: (ops/msm_fixed.py::tables_for_setup)
         self.fb_tables: dict = {}
+        #: the SRS padded and sharded for a mesh, Mesh.key -> {"N", "points",
+        #: "tables"} (parallel/mesh_engine.py::MeshEngine._mesh_srs)
+        self.mesh_srs: dict = {}
 
     def srs_len(self) -> int:
         return self.n_powers

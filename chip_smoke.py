@@ -26,7 +26,9 @@ Phases, each printed with its seconds:
      power on edge operands; the fixed-base, bit-serial and Pippenger MSMs
      also against the exact host MSM. The two point-MSM kernels are exact at
      one 2^14-point chunk and at a small ragged shape (their plain versions
-     take seconds a chunk) and timed at the shapes the proves give them
+     take seconds a chunk) and timed at the shapes the proves give them;
+     round 3's combination also in the mesh's form, z(w x) from a row of
+     its own, at the shapes of a shard of phase 9's D = 4 and D = 8 proves
   4. main path: device SRS at 2^16 + 6 powers, a 2^16-gate multiply chain,
      a cold and a warm prove, verify, a wrong public input rejected; every
      kernel of the path must have launched, the sub-NTT kernel exactly twice
@@ -47,7 +49,19 @@ Phases, each printed with its seconds:
   8. bench: python -m baby_plonk_tpu_torch bench in a child process at small
      sizes (MSM, prove 2^12, NTT 2^16, host 2^8, with the bit-serial MSM) on
      the same cache directory; its last line parses with every key
-Then one JSON line of kernels, the card line, and the final status line.
+  9. mesh: the prover sharded over D = 4 shards on min(4, cards) cards
+     (parallel/): the sharded powers of tau equal phase 4's SRS; the
+     distributed NTT at 2^16 and 2^18 (forward, inverse, dual) equals
+     ntt_device reordered by cyclic_perm; both sharded MSMs over 65,538
+     points and the sharded round-1 step at 2^16 equal the single-device
+     commits; MeshEngine proves the 2^16 circuit (cold and warm fixed-base,
+     once bit-serial) to phase 6's fixed-base bytes and verifies, rejects a
+     wrong public input; a D = 8 prove at 2^12 gives TorchEngine's bytes; the
+     Horner, msm_partials and sub-NTT kernels launched and no wrapper saw a
+     CPU tensor
+Then one JSON line of kernels (each row with its launches on the main or
+the named path, and on the same path through MeshEngine), the card line
+with the cold and warm prove of phases 4 and 9, and the final status line.
 Any failure raises: non-zero exit, no status line.
 """
 import json
@@ -181,8 +195,9 @@ def check_kernels(dev, results):
         ``mads``: the 32-bit multiply-adds this run's inputs need. No single
         PyTorch call computes any of these modular functions: library_ms is
         null throughout. ``run``: the prove of phase 6 that gives the wrapper
-        this shape ("bitserial" or "pippenger"), None for the main path, "off"
-        for a wrapper that no prove calls any more.
+        this shape ("bitserial" or "pippenger"), None for the main path, "mesh"
+        for a form only phase 9's MeshEngine prove calls, "off" for a wrapper
+        that no prove calls any more.
         ``extra``: further keys of the row."""
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
@@ -197,6 +212,14 @@ def check_kernels(dev, results):
 
     FIELD_CU = "baby_plonk_tpu_torch/csrc/field.cu"
     PALLAS = "baby_plonk_tpu/ops/pallas_kernels.py"
+
+    # the host cost of the one test ``kernels.launch`` adds to every launch
+    reps = 100000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dev.index == torch.cuda.current_device()
+    print(f"  launch guard (device.index == torch.cuda.current_device()): "
+          f"{(time.perf_counter() - t0) / reps * 1e6:.4f} us a launch", flush=True)
 
     # -- field elementwise (2^16 lanes) --------------------------------------
     n = 1 << 16
@@ -344,7 +367,27 @@ def check_kernels(dev, results):
            timed(lambda: prover_kernels.round3_combine(live, fixed, zh_inv, dpow, sc, 4), 10),
            cuda_ms(lambda: prover_kernels.round3_combine(live, fixed, zh_inv, dpow, sc, 4, plain=True), 1, warm=False),
            FR_BYTES * (17 * m + 6), 19 * FR_MUL * m)  # 16 rows in (z(wx) is the z row again), one out; 19 products a lane
-    del live, fixed, zh_inv, dpow
+    # the mesh's form: z(w x) from a row of its own (MeshEngine.round3_quotient
+    # passes the z row of shard (d + 4) mod D, a strided view the wrapper
+    # copies), at the shapes of a shard: D = 4 at 2^16 gates (2^16 lanes,
+    # shift 1) and D = 8 at 2^12 (2^11 lanes, shift 0 on shards 0-3, 1 on 4-7)
+    for lanes, shifts in ((1 << 16, (1,)), (1 << 11, (0, 1))):
+        live, fixed = random_field(rng, FR, (5, lanes), dev), random_field(rng, FR, (9, lanes), dev)
+        zh_inv, dpow = random_field(rng, FR, (lanes,), dev), random_field(rng, FR, (lanes,), dev)
+        zw = random_field(rng, FR, (5, lanes), dev)[:, 3]
+        for shift in shifts:
+            def combine(plain=False):
+                return prover_kernels.round3_combine(live, fixed, zh_inv, dpow, sc, shift, zw=zw, plain=plain)
+            err = max_abs_err(combine(), combine(plain=True))
+            if lanes == 1 << 16:
+                record("round3_combine, zw row (2^16 lanes, a D = 4 shard)", FIELD_CU,
+                       "baby_plonk_tpu/ops/prover_kernels.py:75", "prover_kernels.round3_combine (zw)", err,
+                       timed(combine, 10), cuda_ms(lambda: combine(plain=True), 1, warm=False),
+                       FR_BYTES * (18 * lanes + 6), 19 * FR_MUL * lanes, run="mesh")  # 17 rows in, one out
+            else:
+                assert err == 0, f"round3_combine with a zw row differs at 2^11 lanes, shift {shift}"
+    print("  round3_combine, zw row at 2^11 lanes (a D = 8 shard), shift 0 and 1: exact", flush=True)
+    del live, fixed, zh_inv, dpow, zw
     rows = [random_field(rng, FR, (n,), dev) for _ in range(7)]
     scal = [int(v) for v in rng.integers(1, 1 << 62, size=4)]
     record("grand_product_fg (2^16)", FIELD_CU, "baby_plonk_tpu/ops/tpu_engine.py:85",
@@ -652,6 +695,22 @@ def msm_times(dev):
     print(json.dumps({"msm_times": out}), flush=True)
 
 
+class Count:
+    """A wrapper's count kept under ``attr``: a wrapper of two forms counts
+    each apart (``round3_combine``: ``launches``, ``launches_zw``)."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
+
+
 def counts(counters):
     return {k: fn.launches for k, fn in counters.items()}
 
@@ -663,7 +722,8 @@ def zero_counts(counters):
 
 def main_path(dev, n, counters):
     """Phase 4. Returns the counts of the whole run and of the warm prove,
-    and the setup, program, witness and public input for phase 6."""
+    the setup, program, witness and public input for phase 6, and the cold
+    and warm prove's seconds."""
     import torch
 
     from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
@@ -709,7 +769,7 @@ def main_path(dev, n, counters):
     print(f"  seconds: cold prove {cold:.3f}, warm prove {warm:.3f}, verify {verify_s:.3f}", flush=True)
     run_counts = counts(counters)
     profile_prove(lambda: Prover(setup, program, engine).prove(witness), warm)
-    return run_counts, warm_counts, (setup, program, witness, public)
+    return run_counts, warm_counts, (setup, program, witness, public), (cold, warm)
 
 
 def profile_prove(prove, warm_s):
@@ -844,6 +904,158 @@ def setup_cache(dev, circuit, fixed_proof, cache_dir):
     print("  prove from the SRS read back, fixed blinding: phase 6's fixed-base proof bytes", flush=True)
 
 
+def mesh_checks(dev, mesh, setup):
+    """Phase 9, the sharded functions at the prove's sizes against their
+    single-device counterparts: the sharded powers of tau against the SRS,
+    the distributed NTT (forward, inverse, dual) at 2^16 and 2^18 against
+    ``ntt_device`` reordered by ``cyclic_perm``, both sharded MSMs over
+    65,538 points against the single-device commit, and the sharded round-1
+    step at 2^16 against ``TorchEngine``'s three commitments."""
+    import numpy as np
+    import torch
+
+    from baby_plonk_tpu_torch.ops import g1_vec, limbs, msm_fixed, ntt, srs
+    from baby_plonk_tpu_torch.ops.dpoly import DPoly
+    from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+    from baby_plonk_tpu_torch.parallel import dmsm, dntt, prove_step
+    from baby_plonk_tpu_torch.parallel.mesh_engine import MeshEngine
+    from baby_plonk_tpu_torch.protocol.poly import Basis
+
+    rng = np.random.default_rng(SEED + 9)
+    FR = limbs.FR
+    pts = srs.setup_points(setup, dev)
+    powers = setup.srs_len()
+    t = time.perf_counter()
+    shards = srs.powers_of_tau_sharded(powers, TAU, mesh)
+    got = tuple(mesh.gather([s[k] for s in shards])[:, :powers] for k in range(3))
+    assert all(torch.equal(g, w) for g, w in zip(got, pts)), "the sharded powers of tau differ from the SRS"
+    phase("mesh: powers_of_tau_sharded(2^16 + 6) == phase 4's SRS", t)
+
+    t = time.perf_counter()
+    for log2n in (16, 18):
+        n = 1 << log2n
+        x = random_field(rng, FR, (n,), dev)
+        perm = torch.from_numpy(dntt.cyclic_perm(n, mesh.D)).to(dev)
+        for inverse in (False, True):
+            want = ntt.ntt_device(x, inverse).index_select(-1, perm)
+            assert torch.equal(dntt.ntt_sharded(x, mesh, inverse), want), f"dNTT 2^{log2n} inverse={inverse}"
+        cyc = dntt._local_fourstep(mesh.shard(x.reshape(16, 1, n)), mesh, False)
+        assert torch.equal(mesh.gather(dntt._local_fourstep_dual(cyc, mesh)).reshape(16, n), x), "dual dNTT"
+        print(f"  dNTT 2^{log2n}: forward and inverse == ntt_device reordered by cyclic_perm, dual round trip "
+              f"exact; forward {cuda_ms(lambda: dntt.ntt_sharded(x, mesh), 5):.3f} ms against ntt_device "
+              f"{cuda_ms(lambda: ntt.ntt_device(x), 5):.3f} ms (events, host time included)", flush=True)
+    phase("mesh: distributed NTT", t)
+
+    t = time.perf_counter()
+    n_pts = (1 << 16) + 2
+    sc = random_field(rng, FR, (n_pts,), dev)
+    single = g1_vec.point_from_device(msm_fixed.tables_for_setup(setup, dev).msm(sc))
+    entry = MeshEngine(mesh)._mesh_srs(setup)
+    sc_shards = mesh.shard(torch.cat([sc, sc.new_zeros((16, entry["N"] - n_pts))], dim=-1))
+    bitserial = g1_vec.point_from_device(dmsm.msm_sharded_arrays(entry["points"], sc_shards, mesh))
+    tables = dmsm.build_tables_sharded(entry["points"], mesh)
+    fixed = g1_vec.points_from_device(dmsm.msm_fixed_sharded(tables, [[s] for s in sc_shards], mesh))[0]
+    assert bitserial == single and fixed == single, "a sharded MSM differs from the single-device commit"
+    phase(f"mesh: msm_sharded_arrays and msm_fixed_sharded over {n_pts} points (SRS padded to {entry['N']}) "
+          "== the single-device commit", t)
+
+    t = time.perf_counter()
+    n = 1 << 16
+    cols = random_field(rng, FR, (3, n), dev)
+    perm = torch.from_numpy(dntt.cyclic_perm(n, mesh.D)).to(dev)
+    outs = prove_step.prove_step_sharded(cols, *(c[:, :n].index_select(-1, perm) for c in pts), mesh)
+    engine = TorchEngine(dev)
+    coeffs = engine.intt_polys([DPoly(cols[:, i].contiguous(), Basis.LAGRANGE) for i in range(3)])
+    assert [g1_vec.point_from_device(o) for o in outs] == engine.commit_many(setup, coeffs), "prove_step_sharded"
+    phase("mesh: prove_step_sharded 2^16 == TorchEngine's three commitments", t)
+
+
+def mesh_path(dev, counters, circuit, fixed_proof):
+    """Phase 9: the prover sharded over D = 4 shards on min(4, cards) cards.
+    The sharded functions (``mesh_checks``), then MeshEngine proves of the
+    2^16 circuit with phase 6's fixed blinding: cold and warm on the
+    fixed-base path, one on the bit-serial path, each giving phase 6's
+    fixed-base proof bytes and verifying; a wrong public input rejected;
+    then a D = 8 prove at 2^12 (z(w x) on another shard in round 3) against
+    TorchEngine's bytes. No CPU tensor reaches a wrapper on this path
+    (``kernels.on_cpu`` is watched). Returns the counts of the fixed-base
+    and the bit-serial run, and the cold and warm prove's seconds."""
+    import torch
+
+    from baby_plonk_tpu_torch import config
+    from baby_plonk_tpu_torch.ops import kernels
+    from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+    from baby_plonk_tpu_torch.parallel.mesh import make_mesh
+    from baby_plonk_tpu_torch.parallel.mesh_engine import MeshEngine
+    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, Verifier, mul_chain
+    from baby_plonk_tpu_torch.utils.metrics import get_metrics
+
+    setup, program, witness, public = circuit
+    blinding = list(range(1, 12))
+    mesh = make_mesh(4)
+    print(f"  mesh: D = {mesh.D} shards on {mesh.physical} card(s) (physical {mesh.physical}): {list(mesh.key)}",
+          flush=True)
+    plain_calls = [0]
+    real_on_cpu = kernels.on_cpu
+
+    def watched(*tensors):
+        cpu = real_on_cpu(*tensors)
+        plain_calls[0] += cpu
+        return cpu
+
+    kernels.on_cpu = watched
+    prev = config.get_config()
+    try:
+        mesh_checks(dev, mesh, setup)
+        assert plain_calls[0] == 0, f"{plain_calls[0]} wrapper calls on CPU tensors in the sharded functions"
+        engine = MeshEngine(mesh)
+        run_counts, seconds = {}, {}
+        for label, cfg in (("fixed", config.Config(commit_fixed_base=True)),
+                           ("bitserial", config.Config(commit_fixed_base=False, msm_algorithm="bitserial"))):
+            config.set_config(cfg)
+            zero_counts(counters)
+            for turn in (("cold", "warm") if label == "fixed" else ("once",)):
+                get_metrics().reset()
+                t = time.perf_counter()
+                proof = Prover(setup, program, engine).prove(witness, blinding=blinding)
+                torch.cuda.synchronize()
+                seconds[f"{label} {turn}"] = time.perf_counter() - t
+                print(f"  mesh {label} prove ({turn}): {seconds[f'{label} {turn}']:.3f} s; "
+                      f"spans: {get_metrics().report()}", flush=True)
+                assert proof.to_bytes() == fixed_proof, f"mesh {label} prove: not phase 6's fixed-base proof bytes"
+            assert Verifier(setup, program, proof, engine=engine).verify(public), f"mesh {label}: no verify"
+            run_counts[label] = counts(counters)
+        wrong = [(public[0] + 1) % (1 << 255)]
+        assert not Verifier(setup, program, proof, engine=engine).verify(wrong), "mesh: wrong public accepted"
+        print("  mesh proves == phase 6's fixed-base proof bytes (fixed-base and bit-serial), verify, "
+              "wrong public input rejected", flush=True)
+        config.set_config(prev)
+        n = 1 << 12
+        constraints, w12, _ = mul_chain(n)
+        p12 = Program.from_strs(constraints, n)
+        s12 = Setup.generate_srs_device(n + 6, TAU, cache=False, device=dev)
+        want = Prover(s12, p12, TorchEngine(dev)).prove(w12, blinding=blinding).to_bytes()
+        eight = MeshEngine(make_mesh(8))
+        assert eight._can_shard(4 * n) and eight._can_shard(n)
+        got = Prover(s12, p12, eight).prove(w12, blinding=blinding).to_bytes()
+        assert got == want, "the D = 8 prove at 2^12 differs from TorchEngine's"
+        print(f"  D = 8 over {eight.mesh.physical} card(s), 2^12: TorchEngine's proof bytes", flush=True)
+        assert plain_calls[0] == 0, f"{plain_calls[0]} wrapper calls on CPU tensors on the mesh path"
+    finally:
+        kernels.on_cpu = real_on_cpu
+        config.set_config(prev)
+    for label, c in run_counts.items():
+        print(f"  launches, mesh {label} run: {json.dumps(c)}", flush=True)
+    for key in ("msm_fixed.msm_fixed_horner", "kernels.ntt_sub", "prover_kernels.round3_combine (zw)",
+                "prover_kernels.grand_product_fg", "limbs.field_scan"):
+        assert run_counts["fixed"][key] > 0, f"{key} did not launch in the mesh fixed-base run"
+    assert run_counts["bitserial"]["msm.msm_partials"] > 0, "msm_partials did not launch in the mesh bit-serial run"
+    assert run_counts["bitserial"]["msm_fixed.msm_fixed_horner"] == 0, "Horner launched on the mesh bit-serial path"
+    for c in run_counts.values():
+        assert c["kernels.ntt_sub"] == 2 * c["kernels.ntt_sub_4step"], "every transform is two sub-NTT launches"
+    return run_counts["fixed"], run_counts["bitserial"], (seconds["fixed cold"], seconds["fixed warm"]), mesh.physical
+
+
 #: every key of the bench's line
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "roofline_pct", "ntt_coeffs_per_s", "ntt_log2",
               "prove_warm_s", "prove_log2", "verify_s", "verifier_preprocess_s", "msm_log2", "prove_warm_range_s",
@@ -924,6 +1136,7 @@ def main():
         "limbs.from_mont": limbs.from_mont, "limbs.mont_pow_fixed": limbs.mont_pow_fixed,
         "limbs.field_scan": limbs.field_scan, "limbs.pow_table": limbs.pow_table,
         "prover_kernels.round3_combine": prover_kernels.round3_combine,
+        "prover_kernels.round3_combine (zw)": Count(prover_kernels.round3_combine, "launches_zw"),
         "prover_kernels.grand_product_fg": prover_kernels.grand_product_fg,
         "kernels.ntt_sub": kernels.ntt_sub,
         "kernels.ntt_sub_4step": kernels.ntt_sub_4step, "g1_vec.padd": g1_vec.padd,
@@ -934,11 +1147,12 @@ def main():
         "msm.msm_partials": msm.msm_partials, "g1_vec.pdouble": g1_vec.pdouble,
     }
     #: wrappers with no launch on the main path: the variable-base path's
-    #: kernels, and the subtraction (the same kernel as the addition), which
-    #: the fused round-3 expression took off every prove
-    off_main = ("msm.msm_partials", "g1_vec.pdouble", "limbs.sub_mod")
+    #: kernels, the mesh's form of round 3, and the subtraction (the same
+    #: kernel as the addition), which the fused round-3 expression took off
+    #: every prove
+    off_main = ("msm.msm_partials", "g1_vec.pdouble", "prover_kernels.round3_combine (zw)", "limbs.sub_mod")
     t = time.perf_counter()
-    run_counts, warm_counts, circuit = main_path(dev, 1 << 16, counters)
+    run_counts, warm_counts, circuit, single_s = main_path(dev, 1 << 16, counters)
     print(f"  launches, whole run: {json.dumps(run_counts)}", flush=True)
     print(f"  launches, warm prove: {json.dumps(warm_counts)}", flush=True)
     for key in ("limbs.mont_mul", "limbs.mont_pow_fixed", "limbs.field_scan", "limbs.pow_table",
@@ -980,17 +1194,28 @@ def main():
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
+    # 9. the prover sharded over a mesh
+    t = time.perf_counter()
+    *mesh_runs, mesh_s, physical = mesh_path(dev, counters, circuit, fixed_proof)
+    mesh_counts = dict(zip(("fixed", "bitserial"), mesh_runs))
+    phase("9 mesh", t)
+
     for banned in ("jax", "jaxlib", "baby_plonk_tpu"):
         assert not any(m == banned or m.startswith(banned + ".") for m in sys.modules), (
             f"{banned} was imported")
     for r in results:
         key, run = r.pop("wrapper"), r.pop("run")
-        r["path"] = {None: "main", "off": "off the main path"}.get(run, f"variable-base ({run})")
-        r["launches"] = vb_counts[run][key] if run in vb_counts else run_counts[key]
+        r["path"] = {None: "main", "off": "off the main path", "mesh": "mesh (phase 9's fixed-base run)"}.get(
+            run, f"variable-base ({run})")
+        r["launches"] = (vb_counts[run][key] if run in vb_counts else mesh_counts["fixed"][key] if run == "mesh"
+                         else run_counts[key])
         assert (r["launches"] > 0) != (run == "off"), f"{r['name']}: {r['launches']} launches on its path"
+        # the same path through MeshEngine (Pippenger stays single-device)
+        r["launches_mesh"] = 0 if run == "pippenger" else mesh_counts.get(run, mesh_counts["fixed"])[key]
     phase("total", t_all)
     print(json.dumps({"kernels": results}), flush=True)
-    print(f"card: {card}", flush=True)
+    print(f"card: {card} | prove 2^16 cold, warm s: TorchEngine {single_s[0]:.3f}, {single_s[1]:.3f}; "
+          f"MeshEngine D = 4 on {physical} card(s) {mesh_s[0]:.3f}, {mesh_s[1]:.3f}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),
         flush=True)

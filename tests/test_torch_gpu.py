@@ -285,3 +285,61 @@ def test_device_srs_cache_round_trip(dev, tmp_path, monkeypatch):
     got, want = loaded.device_points[str(dev)], made.device_points[str(dev)]
     assert all(g.device == want[0].device and torch.equal(g, w) for g, w in zip(got, want))
     assert loaded.x_2 == made.x_2
+
+
+def test_round3_combine_zw_row(dev):
+    """bpt_round3_combine with z(w x) read from a row of its own (the mesh's
+    cross-shard z) against its plain version; z's own row as that row gives
+    the kernel's single-device reading."""
+    from baby_plonk_tpu_torch.ops import prover_kernels as pk
+
+    m = 96
+    pack = lambda seed, shape: limbs.FR.pack_mont(field_ints(seed, fr.Q, int(np.prod(shape))), dev).reshape((16,) + shape)
+    live, fixed, zw = pack(35, (5, m)), pack(36, (9, m)), pack(37, (m,))
+    zh_inv, dpow, sc = pack(38, (m,)), pack(39, (m,)), pk.scalars(field_ints(34, fr.Q, 6), dev)
+    for shift in (0, 1, 95):
+        before = pk.round3_combine.launches, pk.round3_combine.launches_zw
+        got = pk.round3_combine(live, fixed, zh_inv, dpow, sc, shift, zw=zw)
+        assert (pk.round3_combine.launches, pk.round3_combine.launches_zw) == (before[0], before[1] + 1)
+        assert torch.equal(got, pk.round3_combine(live, fixed, zh_inv, dpow, sc, shift, zw=zw, plain=True))
+    assert torch.equal(pk.round3_combine(live, fixed, zh_inv, dpow, sc, 4, zw=live[:, 3]),
+                       pk.round3_combine(live, fixed, zh_inv, dpow, sc, 4))
+
+
+@pytest.mark.parametrize("D", [4, 8])
+def test_mesh_prove_equals_torch_engine(dev, D):
+    """A mesh prove at n = 32 with D shards over the visible cards (shard d
+    on card d mod the count): TorchEngine's proof bytes."""
+    from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+    from baby_plonk_tpu_torch.parallel.mesh import make_mesh
+    from baby_plonk_tpu_torch.parallel.mesh_engine import MeshEngine
+    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, Verifier, mul_chain
+
+    n = 32
+    constraints, witness, public = mul_chain(n)
+    program = Program.from_strs(constraints, n)
+    setup = Setup.generate_srs_device(n + 6, 4242, cache=False, device=dev)
+    blinding = list(range(1, 12))
+    want = Prover(setup, program, TorchEngine(dev)).prove(witness, blinding=blinding)
+    engine = MeshEngine(make_mesh(D))
+    before = kernels.ntt_sub.launches
+    got = Prover(setup, program, engine).prove(witness, blinding=blinding)
+    assert kernels.ntt_sub.launches > before
+    assert got.to_bytes() == want.to_bytes()
+    assert Verifier(setup, program, got, engine=engine).verify(public)
+
+
+def test_launch_on_a_second_card():
+    """A kernel on a tensor of cuda:1 while the current device is 0:
+    ``kernels.launch`` switches the device for the launch (and the sub-NTT's
+    shared-memory opt-in is made for that card too)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    a = limbs.FR.pack_raw(field_ints(1, fr.Q, 1000), d1)
+    b = limbs.FR.pack_raw(field_ints(2, fr.Q, 1000), d1)
+    assert torch.equal(limbs.mont_mul(limbs.FR, a, b).long(), limbs._mont_mul_plain(limbs.FR, a, b))
+    x = limbs.FR.pack_mont(field_ints(70, fr.Q, 1024 * 8), d1).reshape(16, 1, 1024, 8)
+    assert torch.equal(kernels.ntt_sub(x, False).long(), kernels.ntt_sub_plain(x, ntt.sub_twiddles(1024, False, d1)))
+    assert torch.cuda.current_device() == 0

@@ -1,8 +1,9 @@
 """The port runs without JAX and without the JAX package: a child
 interpreter whose import system refuses ``jax`` and ``baby_plonk_tpu``
 imports the port, builds its ``Setup`` from the port and re-proves the
-frozen n = 8 fixture through its Prover and TorchEngine("cpu"); and no
-source of the port, nor ``chip_smoke.py``, imports either."""
+frozen n = 8 fixture through its Prover, with TorchEngine("cpu") and with
+MeshEngine over two CPU shards; and no source of the port, nor
+``chip_smoke.py``, imports either."""
 import os
 import re
 import subprocess
@@ -27,6 +28,8 @@ torch.set_num_threads(1)
 import baby_plonk_tpu_torch
 from baby_plonk_tpu_torch.ops.engine import HostEngine
 from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+from baby_plonk_tpu_torch.parallel.mesh import make_mesh
+from baby_plonk_tpu_torch.parallel.mesh_engine import MeshEngine
 from baby_plonk_tpu_torch.protocol import Program, Proof, Prover, Setup, Verifier
 
 fix = json.load(open(os.path.join(sys.argv[1], "tests", "fixtures", "golden_proof.json")))
@@ -36,6 +39,9 @@ proof = Prover(setup, program, engine=TorchEngine("cpu")).prove(fix["witness"], 
 assert proof.to_bytes().hex() == fix["proof_hex"], "proof bytes differ"
 public = fix["public"]
 assert Verifier(setup, program, Proof.from_bytes(proof.to_bytes()), engine=HostEngine()).verify(public)
+mesh_proof = Prover(setup, program, engine=MeshEngine(make_mesh(2, device="cpu"))).prove(
+    fix["witness"], blinding=fix["blinding"])
+assert mesh_proof.to_bytes().hex() == fix["proof_hex"], "mesh proof bytes differ"
 for b in BLOCKED:
     assert not any(m == b or m.startswith(b + ".") for m in sys.modules), b
 print("NOJAX-OK")

@@ -55,6 +55,28 @@ def test_round3_combine_matches_jax():
     assert torch.equal(got, pk.round3_combine(live, fixed, trows[14], trows[15], sc, shift, plain=True))
 
 
+def test_round3_combine_zw_row_matches_jax():
+    """z(w x) from a row of its own (a mesh shard reads another shard's z),
+    read ``shift`` lanes on: the JAX expression with that row rolled."""
+    m, shift = 32, 1
+    _, jrows, trows = _rows(130, 17, m)
+    (aE, bE, cE, zE, piE, s1E, s2E, s3E, qlE, qrE, qmE, qoE, qcE, l1E, zh_inv, dpow, zwE) = jrows
+    beta, gamma, alpha, k1, k2 = field_ints(150, Q, 5)
+    with jl.compact_mul():
+        want = jpk._round3_combine_rows(
+            aE, bE, cE, zE, jnp.roll(zwE, -shift, axis=-1), s1E, s2E, s3E,
+            qlE, qrE, qmE, qoE, qcE, piE, l1E, zh_inv, dpow,
+            *(_jscalar(v) for v in (beta, gamma, alpha, alpha * alpha, k1, k2)))
+    live = torch.stack(trows[:5], dim=1)
+    fixed = torch.stack(trows[5:14], dim=1)
+    sc = pk.scalars((beta, gamma, alpha, alpha * alpha, k1, k2), "cpu")
+    got = pk.round3_combine(live, fixed, trows[14], trows[15], sc, shift, zw=trows[16])
+    assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int32))
+    # z's own row given as zw reads as no zw at all
+    assert torch.equal(pk.round3_combine(live, fixed, trows[14], trows[15], sc, shift, zw=trows[3]),
+                       pk.round3_combine(live, fixed, trows[14], trows[15], sc, shift))
+
+
 def test_scalars_are_montgomery_columns():
     vals = [0, 1, Q - 1, 5]
     sc = pk.scalars(vals, "cpu")
