@@ -22,7 +22,8 @@ from ..ops.msm_fixed import GROUP, FixedBaseTables
 
 
 def _by_device(mesh):
-    """[(device, shard indices on it)], in order of first appearance."""
+    """[(device, positions in this process's shard lists)], in order of
+    first appearance."""
     groups: dict = {}
     for d, dev in enumerate(mesh.devices):
         groups.setdefault(dev, []).append(d)
@@ -30,16 +31,18 @@ def _by_device(mesh):
 
 
 def _combine(partials, mesh):
-    """D partials (24, ...) x3, one a shard, -> their sum on ``home``."""
-    stacked = tuple(torch.stack([p[k].to(mesh.home) for p in partials], dim=-1) for k in range(3))
-    return g1_vec.combine_partials(stacked)
+    """This process's partials (24, ...) x3, one a shard, -> the sum of all
+    D partials on ``home``: the partials gathered (X, Y, Z in one tensor,
+    one collective) and added in every process."""
+    stacked = mesh.gather([torch.stack(p)[..., None] for p in partials])  # (3, 24, ..., D)
+    return g1_vec.combine_partials(tuple(stacked))
 
 
 def msm_sharded_arrays(point_shards, scalar_shards, mesh):
     """Bit-serial MSM over the mesh. ``point_shards``: (24, n/D) x3 a shard,
     ``scalar_shards``: (16, n/D) raw limbs a shard, n/D a power of two.
     Returns (24,) x3 on ``home``."""
-    partials = [None] * mesh.D
+    partials = [None] * len(mesh.devices)
     for _, idx in _by_device(mesh):
         pts = tuple(torch.cat([point_shards[d][k] for d in idx], dim=-1) for k in range(3))
         sc = torch.cat([scalar_shards[d] for d in idx], dim=-1)
@@ -96,7 +99,7 @@ def msm_fixed_sharded(tables, scalar_shards, mesh):
     raw scalar blocks (16, n/D) of shard d, against ``build_tables_sharded``'s
     tables. Each shard's partial comes out of its device's launch apart, and
     the D partials are added on ``home``. Returns (24, P) x3."""
-    partials = [None] * mesh.D
+    partials = [None] * len(mesh.devices)
     for idx, t in tables:
         P = len(scalar_shards[idx[0]])
         sc = [torch.cat([scalar_shards[d][i] for d in idx], dim=-1) for i in range(P)]

@@ -80,7 +80,7 @@ def _local_fourstep(shards, mesh, inverse: bool):
     # transpose 1: shard d gets chunk d of every row i1 -> (K, D, m/D)
     a = mesh.all_to_all(shards, -1, -1)
     out = []
-    for d, x in enumerate(a):
+    for d, x in zip(mesh.ids, a):
         # step 1: D-point NTT over i1 (axis -2); step 2: twiddle w^(i2 k1)
         x = kernels.ntt_sub_4step(x.reshape(16, K, D, mD), inverse, scaled=True)
         out.append(_twiddle(x, n, D, d, inverse))
@@ -103,7 +103,7 @@ def _local_fourstep_dual(shards, mesh):
     # undo transpose 2: i2 chunk j to shard j -> shard d holds [k1, c], i2 = d m/D + c
     a = mesh.all_to_all(a, -2, -2)
     out = []
-    for d, x in enumerate(a):
+    for d, x in zip(mesh.ids, a):
         # undo the twiddle, then the D-point inverse NTT over k1 -> i1
         x = kernels.ntt_sub_4step(_twiddle(x, n, D, d, True), True, scaled=True)
         out.append(x.reshape(16, K, m))

@@ -62,8 +62,8 @@ def grand_product_part1(a, b, c, s1, s2, s3, roots, beta, gamma, k1, k2, mesh):
         s, tg = limbs.field_scan(FR, g, "mul", reverse=True)
         pre_f.append(p), suf_g.append(s), tot_f.append(tf), tot_g.append(tg)
     all_f, all_g = mesh.all_gather(tot_f), mesh.all_gather(tot_g)
-    pre_f = [_fold_totals(p, all_f[d], d, reverse=False) for d, p in enumerate(pre_f)]
-    suf_g = [_fold_totals(s, all_g[d], d, reverse=True) for d, s in enumerate(suf_g)]
+    pre_f = [_fold_totals(p, t, d, reverse=False) for d, p, t in zip(mesh.ids, pre_f, all_f)]
+    suf_g = [_fold_totals(s, t, d, reverse=True) for d, s, t in zip(mesh.ids, suf_g, all_g)]
     return pre_f, suf_g, _product(all_f[0]), _product(all_g[0])
 
 

@@ -19,7 +19,8 @@ moves Montgomery limbs, exactly.
 Between the engine's calls the state lives on ``home``, unsharded: a
 DPoly that leaves a call is gathered there, and the inherited evaluations
 and linear combination run there. Each sharded call shards its operands
-anew.
+anew. Over a ``ProcessMesh`` every process runs the whole prover on equal
+values: its own shards and, on its own ``home``, the unsharded state.
 
 The four-step transform emits cyclic order (natural k2 D + k1 at gathered
 position k1 m + k2). Round 3 keeps its pointwise step in that order (1/Z_H
@@ -221,8 +222,8 @@ class MeshEngine(TorchEngine):
         D = self.D
         zw = self.mesh.ppermute([x[:, 3] for x in live], lambda d: (d + 4) % D)
         tE = [
-            round3_combine(live[d], fixed[1][d], zh_inv[d], dpow[d], sc.to(dev), (d + 4) // D, zw[d])
-            for d, dev in enumerate(self.mesh.devices)
+            round3_combine(x, f, zh, dp, sc.to(dev), (d + 4) // D, z)
+            for d, dev, x, f, zh, dp, z in zip(self.mesh.ids, self.mesh.devices, live, fixed[1], zh_inv, dpow, zw)
         ]
         t = dntt._local_fourstep_dual([x[:, None] for x in tE], self.mesh)  # natural block order
         t = self.mesh.gather([_mm(x[:, 0], g) for x, g in zip(t, ginvpow)])

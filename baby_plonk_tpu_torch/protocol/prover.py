@@ -97,6 +97,9 @@ class Prover:
         n = self.group_order
         if blinding is None:
             blinding = [secrets.randbelow(Q) for _ in range(11)]
+            mesh = getattr(self.engine, "mesh", None)
+            if mesh is not None:  # the processes of a mesh prove one proof: one draw for all
+                blinding = mesh.agree(blinding)
         assert len(blinding) == 11
         self.blinding = [b % Q for b in blinding]
         self.witness = {k: v % Q for k, v in witness.items()}

@@ -59,9 +59,23 @@ Phases, each printed with its seconds:
      wrong public input; a D = 8 prove at 2^12 gives TorchEngine's bytes; the
      Horner, msm_partials and sub-NTT kernels launched and no wrapper saw a
      CPU tensor
+ 10. multi-process mesh: the prover over a ProcessMesh of two processes
+     (parallel/multihost_smoke.py spawns them; gloo on one card, both
+     processes on cuda:0, the bytes in flight staged through host memory;
+     nccl too, one process a card, on two cards or more): each worker runs
+     the sharded round-1 step against the host oracle, then MeshEngine at
+     D = 4 on the 2^16 circuit from the SRS that the parent wrote to a fresh
+     cache directory (fixed-base cold and warm, once bit-serial), each to
+     phase 6's fixed-base bytes, verifies, rejects a wrong public input; and
+     at D = 8 on 2^12 (z(w x) rows from the other process) to TorchEngine's
+     bytes. Each run must launch the sub-NTT (twice a transform), the mesh's
+     round3_combine, grand_product_fg, field_scan and its commit kernel, and
+     no wrapper may see a CPU tensor; printed per worker and backend: each
+     prove's seconds, and its cross-process collectives and bytes sent
 Then one JSON line of kernels (each row with its launches on the main or
-the named path, and on the same path through MeshEngine), the card line
-with the cold and warm prove of phases 4 and 9, and the final status line.
+the named path, on the same path through MeshEngine, and through it over
+two processes: launches_mp), the card line with the cold and warm prove of
+phases 4, 9 and 10, and the final status line.
 Any failure raises: non-zero exit, no status line.
 """
 import json
@@ -711,6 +725,46 @@ class Count:
         setattr(self.fn, self.attr, value)
 
 
+def kernel_counters():
+    """Every wrapper of the paths, by name: its ``launches`` count."""
+    from baby_plonk_tpu_torch.ops import g1_vec, kernels, limbs, msm, msm_fixed, prover_kernels, srs
+
+    return {
+        "limbs.mont_mul": limbs.mont_mul, "limbs.add_mod": limbs.add_mod,
+        "limbs.sub_mod": limbs.sub_mod, "limbs.to_mont": limbs.to_mont,
+        "limbs.from_mont": limbs.from_mont, "limbs.mont_pow_fixed": limbs.mont_pow_fixed,
+        "limbs.field_scan": limbs.field_scan, "limbs.pow_table": limbs.pow_table,
+        "prover_kernels.round3_combine": prover_kernels.round3_combine,
+        "prover_kernels.round3_combine (zw)": Count(prover_kernels.round3_combine, "launches_zw"),
+        "prover_kernels.grand_product_fg": prover_kernels.grand_product_fg,
+        "kernels.ntt_sub": kernels.ntt_sub,
+        "kernels.ntt_sub_4step": kernels.ntt_sub_4step, "g1_vec.padd": g1_vec.padd,
+        "msm_fixed.build_tables": msm_fixed.build_tables,
+        "msm_fixed.msm_fixed_horner": msm_fixed.msm_fixed_horner,
+        "msm_fixed.msm_join": msm_fixed.msm_join,
+        "srs.powers_of_tau": srs.powers_of_tau,
+        "msm.msm_partials": msm.msm_partials, "g1_vec.pdouble": g1_vec.pdouble,
+    }
+
+
+def watch_cpu_calls():
+    """Count the wrapper calls that take the plain path (``kernels.on_cpu``
+    true); returns the one-entry list that holds the count and the real
+    ``on_cpu`` to put back."""
+    from baby_plonk_tpu_torch.ops import kernels
+
+    plain_calls = [0]
+    real_on_cpu = kernels.on_cpu
+
+    def watched(*tensors):
+        cpu = real_on_cpu(*tensors)
+        plain_calls[0] += cpu
+        return cpu
+
+    kernels.on_cpu = watched
+    return plain_calls, real_on_cpu
+
+
 def counts(counters):
     return {k: fn.launches for k, fn in counters.items()}
 
@@ -995,15 +1049,7 @@ def mesh_path(dev, counters, circuit, fixed_proof):
     mesh = make_mesh(4)
     print(f"  mesh: D = {mesh.D} shards on {mesh.physical} card(s) (physical {mesh.physical}): {list(mesh.key)}",
           flush=True)
-    plain_calls = [0]
-    real_on_cpu = kernels.on_cpu
-
-    def watched(*tensors):
-        cpu = real_on_cpu(*tensors)
-        plain_calls[0] += cpu
-        return cpu
-
-    kernels.on_cpu = watched
+    plain_calls, real_on_cpu = watch_cpu_calls()
     prev = config.get_config()
     try:
         mesh_checks(dev, mesh, setup)
@@ -1056,6 +1102,108 @@ def mesh_path(dev, counters, circuit, fixed_proof):
     return run_counts["fixed"], run_counts["bitserial"], (seconds["fixed cold"], seconds["fixed warm"]), mesh.physical
 
 
+#: the kernels every MeshEngine run of phase 10 must launch, and those of
+#: the fixed-base and the bit-serial commit path
+MP_KERNELS = ("kernels.ntt_sub", "prover_kernels.round3_combine (zw)", "prover_kernels.grand_product_fg",
+              "limbs.field_scan")
+MP_COMMIT = {"fixed": "msm_fixed.msm_fixed_horner", "bitserial": "msm.msm_partials"}
+
+
+def mp_worker(device, D, log2, expect_hex, srs_cache, runs):
+    """One process of phase 10: the sharded round-1 step, then MeshEngine
+    proves of the 2^log2 multiply chain over the process mesh of D shards
+    (``runs``: "fixed cold", "fixed warm", "bitserial"; fixed blinding), each
+    to ``expect_hex`` (else ``TorchEngine``'s bytes on this process's card),
+    then verify and a wrong public input rejected. Every run must launch
+    ``MP_KERNELS`` and its commit kernel (the sub-NTT twice a transform), and
+    no wrapper may see a CPU tensor. Returns each run's seconds,
+    cross-process collectives and bytes, and launches."""
+    from baby_plonk_tpu_torch import config
+    from baby_plonk_tpu_torch.ops import kernels
+    from baby_plonk_tpu_torch.parallel import multihost_smoke as mh
+    from baby_plonk_tpu_torch.parallel.mesh import make_mesh
+    from baby_plonk_tpu_torch.parallel.mesh_engine import MeshEngine
+
+    counters = kernel_counters()
+    plain_calls, real_on_cpu = watch_cpu_calls()
+    prev = config.get_config()
+    try:
+        mesh = make_mesh(D, device=device)
+        mh.step_check(mesh)
+        circ = mh.circuit(1 << log2, mesh.home, srs_cache, TAU)
+        expect = bytes.fromhex(expect_hex) if expect_hex else mh.single_process_proof(circ, mesh.home)
+        engine = MeshEngine(mesh)
+        out = {"rank": mesh.rank, "D": D, "device": str(mesh.home), "shards": list(mesh.ids), "runs": {}}
+        for label in runs:
+            commit = label.split()[0]
+            config.set_config(config.Config(commit_fixed_base=commit == "fixed", msm_algorithm="bitserial"))
+            zero_counts(counters)
+            proof, seconds, stats = mh.prove_checked(engine, circ, expect)
+            c = counts(counters)
+            for key in MP_KERNELS + (MP_COMMIT[commit],):
+                assert c[key] > 0, f"rank {mesh.rank}, {label}: {key} did not launch"
+            assert c["kernels.ntt_sub"] == 2 * c["kernels.ntt_sub_4step"], "every transform is two sub-NTT launches"
+            assert c[MP_COMMIT["fixed" if commit == "bitserial" else "bitserial"]] == 0
+            out["runs"][label] = {"s": seconds, **stats, "launches": c}
+            print(f"rank {mesh.rank}: {mesh}: {label} prove at 2^{log2}, D = {D}: {seconds:.3f} s, "
+                  f"{stats['collectives']} cross-process collectives, {stats['bytes']} bytes sent; "
+                  "the expected proof bytes", flush=True)
+        mh.verify_checked(engine, circ, proof)
+        assert plain_calls[0] == 0, f"{plain_calls[0]} wrapper calls on CPU tensors in a worker"
+        print(f"rank {mesh.rank}: verified, wrong public input rejected, no wrapper saw a CPU tensor", flush=True)
+    finally:
+        kernels.on_cpu = real_on_cpu
+        config.set_config(prev)
+    return out
+
+
+def mp_path(dev, circuit, fixed_proof):
+    """Phase 10: the prover over a ProcessMesh of two processes
+    (``parallel/multihost_smoke.spawn``; ``mp_worker`` in each). The 2^16 +
+    6 SRS is written to a fresh cache directory first and the workers read
+    it. D = 4 (two shards a process) at 2^16: fixed-base cold and warm, then
+    bit-serial, each to phase 6's fixed-base bytes; D = 8 (four a process)
+    at 2^12, where round 3's z(w x) rows all cross processes, to
+    TorchEngine's bytes. gloo on every card count; nccl too, one process a
+    card, on two cards or more. Returns, by backend, the workers' results."""
+    import dataclasses
+
+    import torch
+
+    from baby_plonk_tpu_torch import config
+    from baby_plonk_tpu_torch.parallel import multihost_smoke
+    from baby_plonk_tpu_torch.protocol import Setup
+
+    cards = torch.cuda.device_count()
+    backends = ("gloo", "nccl") if cards >= 2 else ("gloo",)
+    if cards == 1:
+        print("  one card: gloo, both processes on cuda:0 (NCCL refuses two ranks of one communicator on one "
+              "card); the bytes in flight are staged through host memory, the kernels run on the card", flush=True)
+    cache_dir = tempfile.mkdtemp(prefix="bpt_mp_srs_")
+    prev = config.get_config()
+    try:
+        config.set_config(dataclasses.replace(prev, srs_cache_dir=cache_dir))
+        Setup.generate_srs_device(circuit[0].srs_len(), TAU, cache=True, device=dev)
+        config.set_config(prev)
+        out = {}
+        for backend in backends:
+            t = time.perf_counter()
+            four = multihost_smoke.spawn(mp_worker, (4, 16, fixed_proof.hex(), cache_dir,
+                                                     ("fixed cold", "fixed warm", "bitserial")),
+                                         2, backend, "cuda", 300)
+            eight = multihost_smoke.spawn(mp_worker, (8, 12, None, None, ("fixed",)), 2, backend, "cuda", 300)
+            phase(f"mp: {backend}, 2 processes, D = 4 at 2^16 and D = 8 at 2^12", t)
+            for r in four + eight:
+                print(f"  {backend}, rank {r['rank']} on {r['device']}, D = {r['D']}: " + "; ".join(
+                    f"{label} {run['s']:.3f} s, {run['collectives']} collectives, {run['bytes']} bytes"
+                    for label, run in r["runs"].items()), flush=True)
+            out[backend] = four
+    finally:
+        config.set_config(prev)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    return out
+
+
 #: every key of the bench's line
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "roofline_pct", "ntt_coeffs_per_s", "ntt_log2",
               "prove_warm_s", "prove_log2", "verify_s", "verifier_preprocess_s", "msm_log2", "prove_warm_range_s",
@@ -1104,7 +1252,7 @@ def main():
 
     # 2. build
     from baby_plonk_tpu_torch import native
-    from baby_plonk_tpu_torch.ops import g1_vec, kernels, limbs, msm, msm_fixed, prover_kernels, srs
+    from baby_plonk_tpu_torch.ops import kernels
 
     t = time.perf_counter()
     kernels.library()
@@ -1130,22 +1278,7 @@ def main():
         return
 
     # 4. main path
-    counters = {
-        "limbs.mont_mul": limbs.mont_mul, "limbs.add_mod": limbs.add_mod,
-        "limbs.sub_mod": limbs.sub_mod, "limbs.to_mont": limbs.to_mont,
-        "limbs.from_mont": limbs.from_mont, "limbs.mont_pow_fixed": limbs.mont_pow_fixed,
-        "limbs.field_scan": limbs.field_scan, "limbs.pow_table": limbs.pow_table,
-        "prover_kernels.round3_combine": prover_kernels.round3_combine,
-        "prover_kernels.round3_combine (zw)": Count(prover_kernels.round3_combine, "launches_zw"),
-        "prover_kernels.grand_product_fg": prover_kernels.grand_product_fg,
-        "kernels.ntt_sub": kernels.ntt_sub,
-        "kernels.ntt_sub_4step": kernels.ntt_sub_4step, "g1_vec.padd": g1_vec.padd,
-        "msm_fixed.build_tables": msm_fixed.build_tables,
-        "msm_fixed.msm_fixed_horner": msm_fixed.msm_fixed_horner,
-        "msm_fixed.msm_join": msm_fixed.msm_join,
-        "srs.powers_of_tau": srs.powers_of_tau,
-        "msm.msm_partials": msm.msm_partials, "g1_vec.pdouble": g1_vec.pdouble,
-    }
+    counters = kernel_counters()
     #: wrappers with no launch on the main path: the variable-base path's
     #: kernels, the mesh's form of round 3, and the subtraction (the same
     #: kernel as the addition), which the fused round-3 expression took off
@@ -1200,6 +1333,14 @@ def main():
     mesh_counts = dict(zip(("fixed", "bitserial"), mesh_runs))
     phase("9 mesh", t)
 
+    # 10. the prover over a mesh of two processes
+    t = time.perf_counter()
+    mp = mp_path(dev, circuit, fixed_proof)
+    runs = mp["gloo"][0]["runs"]
+    mp_counts = {"bitserial": runs["bitserial"]["launches"],
+                 "fixed": {k: v + runs["fixed warm"]["launches"][k] for k, v in runs["fixed cold"]["launches"].items()}}
+    phase("10 multi-process mesh", t)
+
     for banned in ("jax", "jaxlib", "baby_plonk_tpu"):
         assert not any(m == banned or m.startswith(banned + ".") for m in sys.modules), (
             f"{banned} was imported")
@@ -1212,10 +1353,16 @@ def main():
         assert (r["launches"] > 0) != (run == "off"), f"{r['name']}: {r['launches']} launches on its path"
         # the same path through MeshEngine (Pippenger stays single-device)
         r["launches_mesh"] = 0 if run == "pippenger" else mesh_counts.get(run, mesh_counts["fixed"])[key]
+        # and through MeshEngine over two processes (phase 10, rank 0, gloo)
+        r["launches_mp"] = 0 if run == "pippenger" else mp_counts.get(run, mp_counts["fixed"])[key]
     phase("total", t_all)
     print(json.dumps({"kernels": results}), flush=True)
+    mp_s = "; ".join(
+        f"MeshEngine D = 4 over 2 processes ({backend}) "
+        + ", ".join(f"{max(r['runs'][label]['s'] for r in rs):.3f}" for label in ("fixed cold", "fixed warm"))
+        for backend, rs in mp.items())
     print(f"card: {card} | prove 2^16 cold, warm s: TorchEngine {single_s[0]:.3f}, {single_s[1]:.3f}; "
-          f"MeshEngine D = 4 on {physical} card(s) {mesh_s[0]:.3f}, {mesh_s[1]:.3f}", flush=True)
+          f"MeshEngine D = 4 on {physical} card(s) {mesh_s[0]:.3f}, {mesh_s[1]:.3f}; {mp_s}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),
         flush=True)

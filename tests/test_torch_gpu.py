@@ -343,3 +343,26 @@ def test_launch_on_a_second_card():
     x = limbs.FR.pack_mont(field_ints(70, fr.Q, 1024 * 8), d1).reshape(16, 1, 1024, 8)
     assert torch.equal(kernels.ntt_sub(x, False).long(), kernels.ntt_sub_plain(x, ntt.sub_twiddles(1024, False, d1)))
     assert torch.cuda.current_device() == 0
+
+
+def test_process_mesh_gloo_on_the_card(dev, tmp_path):
+    """Two processes over gloo, D = 4 at n = 32 (both processes on cuda:0
+    with one card, the bytes in flight staged through the host): each proves
+    TorchEngine's bytes on its own card and verifies."""
+    from baby_plonk_tpu_torch.parallel import multihost_smoke
+
+    results = multihost_smoke.spawn(multihost_smoke.smoke, (4, 5, True), 2, "gloo", "cuda", 300, dir=tmp_path)
+    assert [r["rank"] for r in results] == [0, 1]
+    assert all(r["backend"] == "gloo" and r["collectives"] > 0 for r in results)
+
+
+def test_process_mesh_nccl(dev, tmp_path):
+    """Two processes over nccl, one card each, D = 8 at n = 32 (round 3's
+    z(w x) rows from the other process): TorchEngine's bytes, verified."""
+    from baby_plonk_tpu_torch.parallel import multihost_smoke
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("nccl needs one card a process: two CUDA devices")
+    results = multihost_smoke.spawn(multihost_smoke.smoke, (8, 5, True), 2, "nccl", "cuda", 300, dir=tmp_path)
+    assert [r["device"] for r in results] == ["cuda:0", "cuda:1"]
+    assert all(r["backend"] == "nccl" and r["collectives"] > 0 for r in results)
