@@ -1,5 +1,6 @@
-// Fixed-base KZG commit MSM: subset-sum table build, affine normalization,
-// the windowed Horner loop over the tables, and the join of the windows.
+// Fixed-base KZG commit MSM: the subset-sum tables (build and affine
+// normalization), the windowed Horner loop over them, and the join of the
+// windows.
 //
 // Replaces: msm_fixed_pallas + _fixed_indices + _msm_fixed_tile_kernel
 // (baby_plonk_tpu/ops/pallas_kernels.py:185-293) and its XLA twin
@@ -16,11 +17,11 @@
 // over 48 sectors; ops/msm_fixed.py::unpack_tables gives it back.) The
 // identity (entry 0, or a subset that cancels) is the off-curve marker (0, 0).
 //
-// Bound on this card: operations. A Horner step is a doubling and a mixed
-// addition, 19 Fq products on the integer multiply-add pipe, against 96
-// bytes of table. Before the pipe, the length of one lane's dependent chain
-// binds: 255 steps of about 21 us each, whatever the number of lanes, until
-// the card's 50,000 resident lanes are filled.
+// Bound of the Horner loop on this card: operations. A Horner step is a
+// doubling and a mixed addition, 19 Fq products on the integer multiply-add
+// pipe, against 96 bytes of table. Before the pipe, the length of one lane's
+// dependent chain binds: 255 steps of about 21 us each, whatever the number
+// of lanes, until the card's 50,000 resident lanes are filled.
 //
 // Design of the Horner loop: the 255 bits are cut into W windows of S =
 // ceil(255 / W) bits, and a lane is (scalar set, window, group): it runs its
@@ -34,10 +35,52 @@
 // registers; it skips the (0, 0) marker (the mixed addition is not complete
 // for an identity operand). Bit 255 of a canonical Fr scalar is 0.
 //
-// The build is one thread per group (the write-once recurrence T[idx] =
-// T[idx - msb] + P_msb in idx order, projective, in a limb-major scratch)
-// and one thread per entry for the normalization (Fermat inversion of Z,
-// with the dedicated square), which writes the packed entry. Once per SRS.
+// The table build (once per SRS) does the reference's work: 247 complete
+// additions a group (one a subset of two or more points; the identity and
+// the 8 single points are copies) and ONE field inversion a group
+// (Montgomery's trick), where a Fermat inversion of every entry would cost
+// 157,320 multiply-adds against 3,600 for the entry's addition. Bound
+// (utils/roofline.py::tables_work): operations, the additions (0.89 M
+// multiply-adds a group) before the trick's 5 products an entry (0.38 M)
+// and the inversion (0.16 M); the bytes, 2,304 in and 24,576 out a group,
+// take 1/11 of that time. The kernels do 1,568 products a group where the
+// bound counts 1,280: a segment level of 32 products, and each lane's
+// prefixes computed twice rather than kept (24 KB a group of scratch). Three launches, because a Fermat inversion
+// is one serial chain of about 570 products (0.53 ms on this card) that
+// only other groups' work can hide: fused into the build it would hold a
+// warp and its shared memory for that long with one lane busy, so the
+// inversions get a launch of their own, one thread a group, all in flight
+// at once. The launches, all from bpt_msm_build_tables:
+//   1. build_tables_kernel: one warp a group, 4 groups a block. The warp
+//      builds the 16 subset sums of points 0-3 and of points 4-7 in shared
+//      memory (the single points loaded, the rest in 3 levels of complete
+//      additions, 11 a half), then entry idx = lo[idx & 15] + hi[idx >> 4]
+//      for all 256 entries at once (a copy of the other half where one
+//      index is 0: 225 additions), 8 a lane (lane l: entries l + 32 j, so
+//      a store of the warp covers 32 consecutive entries). Two levels of
+//      dependence, where the recurrence T[idx] = T[idx - 2^b] + P_b has 8
+//      and needs all 256 projective entries (36 KB) in shared memory: at
+//      4.6 KB a warp the block's shared memory never limits residency, the
+//      registers do (255 a thread: 2 blocks of 4 warps an SM; capped at 168
+//      for 3 blocks, the kernel spilled 264 bytes and took the same time,
+//      3.00-3.02 against 3.02-3.04 ms over 8193 groups). The entry's
+//      projective X, Y go to its packed slot, Z to a scratch, and each
+//      lane multiplies up its 8 Z's into a segment product.
+//   2. tables_invert_kernel: one thread a group: the 32 segment products'
+//      prefix, one inversion, the back-sweep, giving each segment
+//      product's inverse.
+//   3. normalize_tables_kernel: one warp a group again; a lane recomputes
+//      the prefix products of its 8 Z's into shared memory (12 KB a warp),
+//      then sweeps back from its segment's inverse: 1/Z = (inverse of the
+//      prefix through Z) (prefix before Z), and writes (X/Z, Y/Z) over the
+//      slot. 5 products an entry.
+// A zero Z (entry 0, the identity, in every group; a cancelling subset
+// anywhere) multiplies into the products as one and comes out as (0, 0),
+// as limbs.batch_inverse does (ops/limbs.py). The additions are the
+// complete formulas (g1_add), so a repeated point, whose sum takes the
+// doubling case, and a cancelling pair are both exact. The affine entries
+// are unique, so the packed tables equal the plain version's (ops/
+// msm_fixed.py::build_tables_plain) and the JAX package's word for word.
 #include "g1.cuh"
 
 using namespace bpt;
@@ -47,56 +90,182 @@ namespace {
 constexpr int GROUP = 8;
 constexpr int NB = 1 << GROUP;
 constexpr int NBITS = 255;
-constexpr int ENTRY = 24;  // 32-bit words of one packed entry
+constexpr int ENTRY = 24;   // 32-bit words of one packed entry
+constexpr int GPB = 4;      // groups (warps) a block of the table kernels
+constexpr int SEGS = 32;    // segments of a group: one a lane, 8 entries each
+constexpr int PER_LANE = NB / SEGS;
 
-// points: (24, 8G) x3 projective Montgomery; scratch: (24, G, 256) x3.
-__global__ void build_tables_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
-                                    const int32_t* __restrict__ pz, int64_t G, int32_t* tx,
-                                    int32_t* ty, int32_t* tz) {
-  const int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const int64_t tstride = G * NB;
-  const int64_t row = g * NB;
-  G1P acc;
-  g1_identity(acc);
-  g1_store(tx, ty, tz, row, tstride, acc);
-#pragma unroll 1
-  for (int idx = 1; idx < NB; idx++) {
-    const int msb = 31 - __clz(idx);
-    G1P pt;
-    g1_load(acc, tx, ty, tz, row + (idx - (1 << msb)), tstride);
-    g1_load(pt, px, py, pz, g * GROUP + msb, G * GROUP);
-    g1_add(acc, pt);
-    g1_store(tx, ty, tz, row + idx, tstride, acc);
+// Point slots in shared memory, word-major: s[k][slot] for the 36 words of
+// (X, Y, Z), so lanes that read distinct slots hit distinct banks.
+__device__ __forceinline__ void smem_store(uint32_t (*s)[32], int slot, const G1P& p) {
+#pragma unroll
+  for (int k = 0; k < 12; k++) {
+    s[k][slot] = p.x[k];
+    s[12 + k][slot] = p.y[k];
+    s[24 + k][slot] = p.z[k];
   }
 }
 
-// scratch (24, entries) x3 projective -> packed (entries, 24): (X / Z, Y / Z),
-// or (0, 0) where Z = 0.
-__global__ void normalize_tables_kernel(const int32_t* __restrict__ tx, const int32_t* __restrict__ ty,
-                                        const int32_t* __restrict__ tz, int64_t entries,
-                                        uint32_t* __restrict__ packed) {
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < entries;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    uint32_t x[12], y[12], z[12];
-    load<Fq>(z, tz + e, entries);
-    if (is_zero<Fq>(z)) {
+__device__ __forceinline__ void smem_load(G1P& p, uint32_t (*s)[32], int slot) {
+#pragma unroll
+  for (int k = 0; k < 12; k++) {
+    p.x[k] = s[k][slot];
+    p.y[k] = s[12 + k][slot];
+    p.z[k] = s[24 + k][slot];
+  }
+}
+
+// Three uint4 moves of 12 words (16-byte aligned: every row here is a
+// multiple of 48 bytes).
+__device__ __forceinline__ void put12(uint32_t* dst, const uint32_t v[12]) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int k = 0; k < 3; k++) d[k] = make_uint4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+}
+
+__device__ __forceinline__ void get12(uint32_t v[12], const uint32_t* src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int k = 0; k < 3; k++) {
+    const uint4 w = s[k];
+    v[4 * k] = w.x, v[4 * k + 1] = w.y, v[4 * k + 2] = w.z, v[4 * k + 3] = w.w;
+  }
+}
+
+// z, or one where z = 0 (the identity's Z counts as one in the products).
+__device__ __forceinline__ void nonzero_or_one(uint32_t z[12]) {
+  if (is_zero<Fq>(z)) set_one<Fq>(z);
+}
+
+// points: (24, 8G) x3 projective Montgomery. Out: packed (G, 256, 24) with
+// every entry's projective (X, Y); zs (G, 256, 12) its Z; seg (G, 32, 12)
+// the product of lane l's nonzero Z's (entries l + 32 j).
+__global__ void __launch_bounds__(32 * GPB)
+build_tables_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+                    const int32_t* __restrict__ pz, int64_t G, uint32_t* __restrict__ packed,
+                    uint32_t* __restrict__ zs, uint32_t* __restrict__ seg) {
+  __shared__ uint32_t halves[GPB][36][32];  // slots 0-15: sums of points 0-3, 16-31: of 4-7
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t g = blockIdx.x * (int64_t)GPB + warp;
+  if (g >= G) return;  // a whole warp: the kernel syncs warps only
+  uint32_t(*h)[32] = halves[warp];
+  const int t = lane & 15;  // the subset of the half's 4 points
+  const int half = lane & 16;
+  G1P p, q;
+  if (t == 0) {
+    g1_identity(p);
+    smem_store(h, lane, p);
+  } else if ((t & (t - 1)) == 0) {
+    g1_load(p, px, py, pz, g * GROUP + (half >> 2) + (31 - __clz(t)), G * GROUP);
+    smem_store(h, lane, p);
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int b = 1; b < 4; b++) {  // slots (2^b, 2^(b+1)) = slot t - 2^b + slot 2^b
+    if (t > (1 << b) && t < (2 << b)) {
+      smem_load(p, h, half | (t - (1 << b)));
+      smem_load(q, h, half | (1 << b));
+      g1_add(p, q);
+      smem_store(h, lane, p);
+    }
+    __syncwarp();
+  }
+  uint32_t acc[12];
+  set_one<Fq>(acc);
+#pragma unroll 1
+  for (int j = 0; j < PER_LANE; j++) {
+    const int e = lane + SEGS * j, lo = e & 15, hi = e >> 4;
+    if (lo == 0) {  // one half is the identity: a copy, not an addition
+      smem_load(p, h, 16 | hi);
+    } else {
+      smem_load(p, h, lo);
+      if (hi) {
+        smem_load(q, h, 16 | hi);
+        g1_add(p, q);
+      }
+    }
+    const int64_t row = g * NB + e;
+    put12(packed + row * ENTRY, p.x);
+    put12(packed + row * ENTRY + 12, p.y);
+    put12(zs + row * 12, p.z);
+    nonzero_or_one(p.z);
+    mul<Fq>(acc, acc, p.z);
+  }
+  put12(seg + (g * SEGS + lane) * 12, acc);
+}
+
+// seg (G, 32, 12) -> seginv (G, 32, 12): each segment product's inverse,
+// by Montgomery's trick over the group's 32 with one Fermat inversion. One
+// thread a group.
+__global__ void tables_invert_kernel(const uint32_t* __restrict__ seg, int64_t G,
+                                     uint32_t* __restrict__ seginv) {
+  const int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const uint32_t* s = seg + g * SEGS * 12;
+  uint32_t* out = seginv + g * SEGS * 12;
+  uint32_t acc[12], v[12], inv[12];
+  set_one<Fq>(acc);
+#pragma unroll 1
+  for (int i = 0; i < SEGS; i++) {  // out[i] = s[0] ... s[i - 1]
+    put12(out + i * 12, acc);
+    get12(v, s + i * 12);
+    mul<Fq>(acc, acc, v);
+  }
+  inverse<Fq>(inv, acc);
+#pragma unroll 1
+  for (int i = SEGS - 1; i >= 0; i--) {  // inv = 1 / (s[0] ... s[i])
+    get12(acc, out + i * 12);
+    mul<Fq>(acc, inv, acc);
+    put12(out + i * 12, acc);
+    get12(v, s + i * 12);
+    mul<Fq>(inv, inv, v);
+  }
+}
+
+// packed (X, Y) -> (X / Z, Y / Z) in place, (0, 0) where Z = 0; zs and
+// seginv as above. One warp a group.
+__global__ void __launch_bounds__(32 * GPB)
+normalize_tables_kernel(const uint32_t* __restrict__ zs, const uint32_t* __restrict__ seginv,
+                        int64_t G, uint32_t* __restrict__ packed) {
+  __shared__ uint32_t prefix[GPB][PER_LANE][12][32];  // lane's prefix before entry j, word-major
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t g = blockIdx.x * (int64_t)GPB + warp;
+  if (g >= G) return;
+  uint32_t acc[12], z[12], inv[12], zi[12];
+  unsigned zero = 0;
+  set_one<Fq>(acc);
+#pragma unroll 1
+  for (int j = 0; j < PER_LANE; j++) {
+#pragma unroll
+    for (int k = 0; k < 12; k++) prefix[warp][j][k][lane] = acc[k];
+    get12(z, zs + (g * NB + lane + SEGS * j) * 12);
+    zero |= (unsigned)is_zero<Fq>(z) << j;
+    nonzero_or_one(z);
+    if (j + 1 < PER_LANE) mul<Fq>(acc, acc, z);
+  }
+  get12(inv, seginv + (g * SEGS + lane) * 12);  // 1 / (all 8 of the lane's Z's)
+#pragma unroll 1
+  for (int j = PER_LANE - 1; j >= 0; j--) {
+    const int64_t row = g * NB + lane + SEGS * j;
+#pragma unroll
+    for (int k = 0; k < 12; k++) acc[k] = prefix[warp][j][k][lane];
+    mul<Fq>(zi, inv, acc);  // 1 / Z_j
+    if (j > 0) {
+      get12(z, zs + row * 12);
+      nonzero_or_one(z);
+      mul<Fq>(inv, inv, z);  // 1 / (Z's before j)
+    }
+    uint32_t x[12], y[12];
+    get12(x, packed + row * ENTRY);
+    get12(y, packed + row * ENTRY + 12);
+    mul<Fq>(x, x, zi);
+    mul<Fq>(y, y, zi);
+    if ((zero >> j) & 1u) {
       set_zero<Fq>(x);
       set_zero<Fq>(y);
-    } else {
-      uint32_t zi[12];
-      inverse<Fq>(zi, z);
-      load<Fq>(x, tx + e, entries);
-      load<Fq>(y, ty + e, entries);
-      mul<Fq>(x, x, zi);
-      mul<Fq>(y, y, zi);
     }
-    uint4* dst = reinterpret_cast<uint4*>(packed + e * ENTRY);
-#pragma unroll
-    for (int k = 0; k < 3; k++) {
-      dst[k] = make_uint4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
-      dst[3 + k] = make_uint4(y[4 * k], y[4 * k + 1], y[4 * k + 2], y[4 * k + 3]);
-    }
+    put12(packed + row * ENTRY, x);
+    put12(packed + row * ENTRY + 12, y);
   }
 }
 
@@ -172,23 +341,23 @@ inline unsigned blocks_for(int64_t n, int threads) {
 
 }  // namespace
 
+// The three launches of the table build; zs (G, 256, 12), seg and seginv
+// (G, 32, 12) are the caller's scratch.
 extern "C" int bpt_msm_build_tables(const void* px, const void* py, const void* pz, long long G,
-                                    void* tx, void* ty, void* tz, void* stream) {
-  const int threads = 64;
-  build_tables_kernel<<<blocks_for(G, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)px, (const int32_t*)py, (const int32_t*)pz, G, (int32_t*)tx, (int32_t*)ty,
-      (int32_t*)tz);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int bpt_msm_normalize_tables(const void* tx, const void* ty, const void* tz, long long G,
-                                        void* packed, void* stream) {
-  const int threads = 128;
-  const long long entries = G * NB;
-  long long blocks = (entries + threads - 1) / threads;
-  if (blocks > 65536) blocks = 65536;
-  normalize_tables_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tx, (const int32_t*)ty, (const int32_t*)tz, entries, (uint32_t*)packed);
+                                    void* packed, void* zs, void* seg, void* seginv, void* stream) {
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks = blocks_for(G, GPB);
+  build_tables_kernel<<<blocks, 32 * GPB, 0, s>>>((const int32_t*)px, (const int32_t*)py,
+                                                  (const int32_t*)pz, G, (uint32_t*)packed,
+                                                  (uint32_t*)zs, (uint32_t*)seg);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  tables_invert_kernel<<<blocks_for(G, 128), 128, 0, s>>>((const uint32_t*)seg, G, (uint32_t*)seginv);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  normalize_tables_kernel<<<blocks, 32 * GPB, 0, s>>>((const uint32_t*)zs, (const uint32_t*)seginv, G,
+                                                      (uint32_t*)packed);
   return (int)cudaGetLastError();
 }
 

@@ -207,13 +207,11 @@ def combine_partials(p):
     return tree_reduce(p)
 
 
-def batch_normalize(p, plain: bool = False):
+def batch_normalize(p):
     """Projective batch -> affine (x, y) with one batched inversion over the
     flattened batch; the identity (Z = 0) maps to the (0, 0) marker."""
     X, Y, Z = p
-    zinv = limbs.batch_inverse(FQ, Z.reshape(FQ.L, -1), plain=plain).reshape(Z.shape)
-    if plain:
-        return tuple(limbs._mont_mul_plain(FQ, c, zinv) for c in (X, Y))
+    zinv = limbs.batch_inverse(FQ, Z.reshape(FQ.L, -1)).reshape(Z.shape)
     return limbs.mont_mul(FQ, X, zinv), limbs.mont_mul(FQ, Y, zinv)
 
 

@@ -58,8 +58,7 @@ _SIGNATURES = {
     "bpt_g1_padd": [_P] * 9 + [_I, _P],
     "bpt_g1_pdouble": [_P] * 6 + [_I, _P],
     "bpt_msm_bitserial": [_P] * 4 + [_I, ctypes.c_int] + [_P] * 4,
-    "bpt_msm_build_tables": [_P, _P, _P, _I, _P, _P, _P, _P],
-    "bpt_msm_normalize_tables": [_P, _P, _P, _I, _P, _P],
+    "bpt_msm_build_tables": [_P, _P, _P, _I] + [_P] * 5,
     "bpt_msm_fixed": [_P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
     "bpt_msm_join": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
     "bpt_powers_of_tau": [_P, _P, _I, _P, _P, _P, _P],

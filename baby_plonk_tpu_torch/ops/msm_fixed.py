@@ -19,8 +19,9 @@ sums are joined by a Horner over the windows, S doublings and an addition
 each. W = 1 is the unsplit loop of the JAX package. The launch is sized to
 the scalars: groups past the longest scalar set are not run.
 
-Kernels (csrc/msm_fixed.cu): ``build_tables`` (build + normalization,
-counterpart of ``_build_tables``, ops/msm_fixed.py:82-131),
+Kernels (csrc/msm_fixed.cu): ``build_tables`` (build, one inversion a
+group, normalization; counterpart of ``_build_tables``,
+ops/msm_fixed.py:82-131),
 ``msm_fixed_horner`` (counterpart of ``msm_fixed_pallas``,
 ops/pallas_kernels.py:242, and its XLA twin ``_msm_fixed_kernel_oh``,
 ops/msm_fixed.py:197-228) and ``msm_join``. Each sits beside its plain
@@ -30,7 +31,9 @@ from __future__ import annotations
 
 import torch
 
-from . import g1_vec, kernels, srs
+from . import g1_vec, kernels, limbs, srs
+
+FQ = limbs.FQ
 
 GROUP = 8
 NB = 1 << GROUP
@@ -80,23 +83,47 @@ def unpack_tables(packed):
 # -- table build ----------------------------------------------------------------
 
 
+#: groups the plain build adds at a time and inverts at a time. A plain
+#: product holds about 14 KB a lane at its widest: the last level's 6
+#: stacked products over 128 x 1024 lanes take 11 GB, an inversion over 256
+#: x 4096 lanes 15 GB. Each inversion's power is one serial chain of 570
+#: products (chip_smoke's plain Fq power: about a second on the card), so
+#: the inversions are the wider ones.
+PLAIN_GROUPS, INVERT_GROUPS = 1024, 4096
+
+
 def build_tables_plain(px, py, pz):
     """(24, 8G) x3 projective Montgomery -> packed affine tables
-    (G, 256, 24). Level b appends entries [2^b, 2^(b+1)) = T[idx - 2^b] + P_b."""
+    (G, 256, 24). Level b appends entries [2^b, 2^(b+1)) = T[idx - 2^b] + P_b;
+    then one inversion a group (``limbs.batch_inverse`` along the group's
+    256 Z's), the identity (Z = 0) giving the (0, 0) marker."""
     G = px.shape[-1] // GROUP
+    if G == 0:
+        return torch.empty((0, NB, ENTRY), dtype=torch.int32, device=px.device)
     pts = tuple(c.to(torch.int64).reshape(24, G, GROUP) for c in (px, py, pz))
-    T = g1_vec.pidentity((G, 1), px.device, torch.int64)
-    for b in range(GROUP):
-        width = 1 << b
-        pb = tuple(c[:, :, b : b + 1].expand(24, G, width) for c in pts)
-        new = g1_vec.padd_plain(T, pb)
-        T = tuple(torch.cat([t, n], dim=-1) for t, n in zip(T, new))
-    return pack_tables(*g1_vec.batch_normalize(T, plain=True))
+    parts = []
+    for lo in range(0, G, PLAIN_GROUPS):
+        part = tuple(c[:, lo : lo + PLAIN_GROUPS] for c in pts)
+        g = part[0].shape[1]
+        T = g1_vec.pidentity((g, 1), px.device, torch.int64)
+        for b in range(GROUP):
+            pb = tuple(c[:, :, b : b + 1].expand(24, g, 1 << b) for c in part)
+            T = tuple(torch.cat([t, n], dim=-1) for t, n in zip(T, g1_vec.padd_plain(T, pb)))
+        parts.append(T)
+    X, Y, Z = (torch.cat(c, dim=1) for c in zip(*parts))
+    out = []
+    for s in (slice(lo, lo + INVERT_GROUPS) for lo in range(0, G, INVERT_GROUPS)):
+        zinv = limbs.batch_inverse(FQ, Z[:, s], plain=True)
+        out.append(pack_tables(*(limbs._mont_mul_plain(FQ, c[:, s], zinv) for c in (X, Y))))
+    return torch.cat(out)
 
 
 def build_tables(px, py, pz):
     """Packed subset-sum tables (G, 256, 24) of the 8-point groups of
-    (24, 8G) x3 points."""
+    (24, 8G) x3 points. On the card three launches (csrc/msm_fixed.cu):
+    the build, one thread a group for the group's one inversion, and the
+    normalization; the scratch holds every entry's Z and each lane's
+    segment product and its inverse."""
     if kernels.on_cpu(px, py, pz):
         return build_tables_plain(px, py, pz)
     dev = kernels.check_cuda(px, py, pz)
@@ -105,12 +132,13 @@ def build_tables(px, py, pz):
         raise ValueError(f"build_tables: bad point shape {tuple(px.shape)}")
     G = n // GROUP
     px, py, pz = (c.contiguous() for c in (px, py, pz))
-    scratch = tuple(torch.empty((24, G, NB), dtype=torch.int32, device=dev) for _ in range(3))
     packed = torch.empty((G, NB, ENTRY), dtype=torch.int32, device=dev)
-    kernels.launch("bpt_msm_build_tables", dev, *(kernels.ptr(c) for c in (px, py, pz)), G,
-                   *(kernels.ptr(c) for c in scratch))
-    kernels.launch("bpt_msm_normalize_tables", dev, *(kernels.ptr(c) for c in scratch), G, kernels.ptr(packed))
-    build_tables.launches += 1
+    if G:
+        zs = torch.empty((G, NB, 12), dtype=torch.int32, device=dev)
+        seg = torch.empty((2, G, 32, 12), dtype=torch.int32, device=dev)
+        kernels.launch("bpt_msm_build_tables", dev, *(kernels.ptr(c) for c in (px, py, pz)), G,
+                       kernels.ptr(packed), kernels.ptr(zs), kernels.ptr(seg[0]), kernels.ptr(seg[1]))
+        build_tables.launches += 1
     return packed
 
 

@@ -17,7 +17,11 @@ powers-of-tau kernel (counterpart of ``Setup.generate_srs_device`` there,
 device) and ``powers_of_x`` stays None until ``materialize_host``. With
 ``cache=True`` the device SRS is kept as an ``.npz`` under
 ``Config.srs_cache_dir`` (key prefix ``srs-dev-torch-v1``: the port's own,
-the JAX package's ``srs-dev-v2`` files hold another layout).
+the JAX package's ``srs-dev-v2`` files hold another layout). A file written
+before powers of tau windowed over a table of multiples holds other
+projective coordinates of the same points, which every consumer (the
+affine tables, the MSMs, the proof's compressed points) reads alike; so
+the key stayed.
 """
 from __future__ import annotations
 

@@ -43,3 +43,45 @@ def horner_work(sc, G, windows):
     steps = P * G * msm_fixed.window_bits(windows) * windows
     return (FQ_BYTES * 256 * G + FR_BYTES * P * 8 * G + 3 * FQ_BYTES * P * windows * G,
             DOUBLE_MADS * steps + FQ_MUL * MIXED_MULS * nonzero)
+
+
+def fermat_inverse_mads(modulus: int, sqr_mads: int, mul_mads: int) -> int:
+    """Multiply-adds of a^(p - 2) by square-and-multiply: a square a bit,
+    a product a set bit below the top."""
+    e = modulus - 2
+    return (e.bit_length() - 1) * sqr_mads + (bin(e).count("1") - 1) * mul_mads
+
+
+#: complete additions that one group's 256 subset sums need: one for each
+#: subset of two or more of the 8 points (the identity and the single
+#: points are copies), however the build orders them
+TABLE_ADDS = 256 - 1 - 8
+#: Fq products of one group's normalization: Montgomery's trick, a prefix
+#: product and two back-sweep products an entry, and 2 for (x, y). (The
+#: kernel does 1568: csrc/msm_fixed.cu recomputes each lane's prefixes
+#: rather than keep them, and adds a level of 32 segment products.)
+TABLE_TRICK_MULS = (3 + 2) * 256
+
+
+def tables_work(G):
+    """(bytes, multiply-adds) of one table build over G groups
+    (``msm_fixed.build_tables``): the 8 G projective points in and the
+    packed entries out once; per group ``TABLE_ADDS`` complete additions,
+    ``TABLE_TRICK_MULS`` products and one Fermat inversion."""
+    from ..fields import fq
+
+    inv = fermat_inverse_mads(fq.P, FQ_SQR, FQ_MUL)
+    return (3 * FQ_BYTES * 8 * G + FQ_BYTES * 256 * G,
+            G * (FQ_MUL * (ADD_MULS * TABLE_ADDS + TABLE_TRICK_MULS) + inv))
+
+
+def powers_of_tau_work(sc):
+    """(bytes, multiply-adds) of one launch of the windowed powers-of-tau
+    kernel (``srs.powers_of_tau``) over raw scalars ``sc`` (16, n): the
+    scalars in, the points out and the table of multiples read once; a
+    mixed addition for each nonzero byte of this run's scalars."""
+    from ..ops import srs
+
+    nonzero = sum(int((srs._digit(sc, k) != 0).sum()) for k in range(srs.WINDOWS))
+    return ((FR_BYTES + 3 * FQ_BYTES) * sc.shape[-1] + FQ_BYTES * 256 * srs.WINDOWS,
+            FQ_MUL * MIXED_MULS * nonzero)

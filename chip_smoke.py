@@ -7,6 +7,9 @@
                                      # the prove's shapes through entry points that every
                                      # version of the package has (copy the script beside an
                                      # older package to time that one on the same card)
+    python3 chip_smoke.py --setup-times  # phases 1-2, then only the two set-up kernels (powers of
+                                     # tau, the fixed-base tables) timed at the main path's shapes,
+                                     # the same way
 
 The plans, cold and warm proves with their round spans, timed in a process
 that runs nothing else: ``python -m baby_plonk_tpu_torch bench``.
@@ -28,8 +31,14 @@ Phases, each printed with its seconds:
      one 2^14-point chunk and at a small ragged shape (their plain versions
      take seconds a chunk) and timed at the shapes the proves give them;
      round 3's combination also in the mesh's form, z(w x) from a row of
-     its own, at the shapes of a shard of phase 9's D = 4 and D = 8 proves
-  4. main path: device SRS at 2^16 + 6 powers, a 2^16-gate multiply chain,
+     its own, at the shapes of a shard of phase 9's D = 4 and D = 8 proves.
+     The set-up kernels at the main path's widths: powers of tau over 2^16 +
+     6 lanes (and 2^10, and the scalars 0, 1, 2, r - 1) with the plain
+     version's own table of multiples, the table (255 doublings, then the
+     table build) timed kernel by kernel; the table build over the prove's SRS, 8193 groups,
+     and one 2^14-point chunk
+  4. main path: device SRS at 2^16 + 6 powers (the generator's table of
+     multiples dropped first, so the SRS builds it), a 2^16-gate multiply chain,
      a cold and a warm prove, verify, a wrong public input rejected; every
      kernel of the path must have launched, the sub-NTT kernel exactly twice
      a transform, the field product fewer than 220 times a warm prove; then
@@ -166,6 +175,31 @@ def timed_events(fn, reps):
     return cuda_ms(fn, reps), host_us(fn, reps)
 
 
+def once_ms(fn):
+    """(fn(), ms) of one call ending in a synchronise: a plain version is
+    timed on the call whose result is compared."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def kernel_ms(fn, names):
+    """Device ms of each kernel of one call of ``fn`` whose name holds one
+    of ``names`` (torch.profiler, two agreeing readings)."""
+    from baby_plonk_tpu_torch.bench import profile_device
+
+    fn()
+    readings, agreed = profile_device(fn, tries=6)
+    if not agreed:
+        raise AssertionError("torch.profiler gave no two device times that agree")
+    rows = readings[-1][1]
+    return {n: sum(ms for key, _, ms in rows if n in key) for n in names}
+
+
 def max_abs_err(got, want):
     import torch
 
@@ -198,7 +232,8 @@ def check_kernels(dev, results):
                                           prover_kernels, srs)
     # the peaks and work counts behind every bound (shared with the bench)
     from baby_plonk_tpu_torch.utils.roofline import (ADD_MULS, DOUBLE_MADS, FQ_BYTES, FQ_MUL, FQ_SQR, FR_BYTES,
-                                                     FR_MUL, FR_SQR, bound, horner_work)
+                                                     FR_MUL, FR_SQR, bound, horner_work, powers_of_tau_work,
+                                                     tables_work)
 
     rng = np.random.default_rng(SEED)
     FR, FQ = limbs.FR, limbs.FQ
@@ -453,36 +488,64 @@ def check_kernels(dev, results):
                columns=(kernels._columns_per_block(m1, m2), kernels._columns_per_block(m2, m1)))
     del x18, x4, sets
 
-    # -- powers of tau on 2^10 lanes -------------------------------------------
+    # -- powers of tau: the generator's doubling chain and table of multiples,
+    # then the windowed kernel at the main path's 2^16 + 6 lanes and at 2^10 --
+    # (each plain version is timed on the call whose result is compared)
+    SRS_CU = "baby_plonk_tpu_torch/csrc/srs.cu"
     base = srs.generator_base(dev)
-    sc = srs.tau_scalars(1 << 10, TAU, dev)
-    record("powers_of_tau", "baby_plonk_tpu_torch/csrc/srs.cu", "baby_plonk_tpu/ops/srs.py:24",
-           "srs.powers_of_tau", max_abs_err(srs.powers_of_tau(sc, base), srs.powers_of_tau_plain(sc, base)),
-           timed_events(lambda: srs.powers_of_tau(sc, base), 3),
-           cuda_ms(lambda: srs.powers_of_tau_plain(sc, base), 1, warm=False),
-           (FR_BYTES + 3 * FQ_BYTES) * (1 << 10),
-           # per lane 254 doublings and one addition per set bit
-           DOUBLE_MADS * 254 * (1 << 10) + FQ_MUL * ADD_MULS * popcount(sc))
+    # (the plain chain on the host: 255 one-lane doublings, each a few ms
+    # of small launches on the card)
+    chain_p = tuple(c.to(dev) for c in srs.doubling_chain_plain(base.cpu()))
+    assert max_abs_err(srs.doubling_chain(base), chain_p) == 0, "the doubling chain differs from its plain version"
+    table_p = msm_fixed.build_tables_plain(*chain_p)
 
-    # -- fixed-base MSM: one 2^14-point chunk ----------------------------------
+    def fresh_table():
+        srs.base_tables.clear()
+        return srs.base_table(base)
+    table_ms = cuda_ms(fresh_table, 3)
+    assert torch.equal(srs.base_table(base), table_p), "the generator's table differs from the plain build"
+    n_srs = (1 << 16) + 6
+    sc = srs.tau_scalars(n_srs, TAU, dev)
+    sc10 = sc[:, : 1 << 10].contiguous()
+    srs_pts = srs.powers_of_tau(sc, base)
+    want, pot_plain_ms = once_ms(lambda: srs.powers_of_tau_plain(sc, base, table_p))
+    err = max_abs_err(srs_pts, want)
+    assert max_abs_err(srs.powers_of_tau(sc10, base), srs.powers_of_tau_plain(sc10, base, table_p)) == 0, (
+        "powers_of_tau differs from its plain version at 2^10 lanes")
+    edge = FR.pack_raw([0, 1, 2, FR.modulus - 1], dev)
+    assert max_abs_err(srs.powers_of_tau(edge, base), srs.powers_of_tau_plain(edge, base, table_p)) == 0, (
+        "powers_of_tau differs from its plain version on the scalars 0, 1, 2, r - 1")
+    print(f"  powers_of_tau: the generator's table (255 doublings + build_tables over 32 groups) {table_ms:.4f} ms; "
+          "exact at 2^16 + 6 and 2^10 lanes and on the scalars 0, 1, 2, r - 1", flush=True)
+    record("powers_of_tau", SRS_CU, "baby_plonk_tpu/ops/srs.py:24", "srs.powers_of_tau", err,
+           timed(lambda: srs.powers_of_tau(sc, base), 3), pot_plain_ms,
+           *powers_of_tau_work(sc), shape="2^16 + 6 lanes, the table kept",
+           ms_2_10=cuda_ms(lambda: srs.powers_of_tau(sc10, base), 5), bound_ms_2_10=bound(*powers_of_tau_work(sc10))[0],
+           table_ms=table_ms, table_bound_ms=bound(FQ_BYTES * 3 * srs.CHAIN, DOUBLE_MADS * (srs.CHAIN - 1))[0]
+           + bound(*tables_work(srs.WINDOWS))[0],
+           table_kernel_ms=kernel_ms(fresh_table, ("g1_pdouble", "build_tables", "tables_invert", "normalize_tables")),
+           plain_shape="2^16 + 6 lanes, the plain version's own table")
+    del table_p, chain_p, want
+
+    # -- the table build: the prove's SRS (8193 groups) and one 2^14-point chunk
     chunk = msm_fixed.CHUNK
     groups = chunk // msm_fixed.GROUP
-    pm2 = FQ.modulus - 2
-    inv_mads = (pm2.bit_length() - 1) * FQ_SQR + (bin(pm2).count("1") - 1) * FQ_MUL
-    n_srs = (1 << 16) + 6
-    srs_pts = srs.powers_of_tau(srs.tau_scalars(n_srs, TAU, dev), base)
+    full, rest = msm_fixed.FixedBaseTables(srs_pts).launch_groups(n_srs)
+    g_srs = full * groups + rest
+    path_pts = tuple(torch.cat([c, c[:, :1].expand(24, 8 * g_srs - n_srs)], dim=-1) for c in srs_pts)
+    want, tables_plain_ms = once_ms(lambda: msm_fixed.build_tables_plain(*path_pts))
+    t_path = msm_fixed.build_tables(*path_pts)
     pts = tuple(c[:, :chunk].contiguous() for c in srs_pts)
     t_k = msm_fixed.build_tables(*pts)
-    t_p = msm_fixed.build_tables_plain(*pts)
+    # one chunk is the SRS's first 2048 groups: its plain tables are want's first rows
+    assert max_abs_err(t_k, want[:groups]) == 0, "build_tables differs from its plain version on one chunk"
     record("msm_build_tables", "baby_plonk_tpu_torch/csrc/msm_fixed.cu",
-           "baby_plonk_tpu/ops/msm_fixed.py:83", "msm_fixed.build_tables", max_abs_err(t_k, t_p),
-           timed_events(lambda: msm_fixed.build_tables(*pts), 2),
-           cuda_ms(lambda: msm_fixed.build_tables_plain(*pts), 1, warm=False),
-           3 * FQ_BYTES * chunk + FQ_BYTES * 256 * groups,
-           # per group 255 additions, and per entry a Fermat inversion (a square
-           # per bit of p - 2, a product per set bit) and 2 products
-           groups * (FQ_MUL * ADD_MULS * 255 + 256 * (inv_mads + 2 * FQ_MUL)))
-    del t_p
+           "baby_plonk_tpu/ops/msm_fixed.py:83", "msm_fixed.build_tables", max_abs_err(t_path, want),
+           timed_events(lambda: msm_fixed.build_tables(*path_pts), 3), tables_plain_ms, *tables_work(g_srs),
+           shape=f"the prove's SRS, {g_srs} groups", ms_one_chunk=cuda_ms(lambda: msm_fixed.build_tables(*pts), 3),
+           kernel_ms=kernel_ms(lambda: msm_fixed.build_tables(*path_pts), ("build_tables", "tables_invert", "normalize_tables")),
+           bound_ms_one_chunk=bound(*tables_work(groups))[0])
+    del t_path, path_pts, want
     scal = random_field(rng, FR, (1, chunk), dev)
 
     one_chunk = {
@@ -650,15 +713,16 @@ def check_kernels(dev, results):
            bound_ms_one_chunk=bound(*partials_work(sc1, chunk))[0],
            plain_shape="one 2^14-point chunk")
     del path_pts, srs_pts
-    # the doubling's only shape on any path: the Pippenger running total, one
-    # point of shape (24,), doubled c times per window
+    # the doubling's shape on every path: one point, the Pippenger running
+    # total (24,), doubled c times per window, and the doubling chain of the
+    # SRS's table of multiples (24, 1), 255 launches on the main path
     pt1 = tuple(c[:, 1].contiguous() for c in pts)
     pt64 = tuple(c.to(torch.int64) for c in pt1)
     assert pt1[0].shape == (24,)
     record("g1_pdouble", "baby_plonk_tpu_torch/csrc/g1.cu", "baby_plonk_tpu/ops/g1_vec.py:165",
            "g1_vec.pdouble", max_abs_err(g1_vec.pdouble(pt1), g1_vec.pdouble_plain(pt64)),
            timed(lambda: g1_vec.pdouble(pt1), 100), cuda_ms(lambda: g1_vec.pdouble_plain(pt64), 5),
-           6 * FQ_BYTES, DOUBLE_MADS, run="pippenger")
+           6 * FQ_BYTES, DOUBLE_MADS)
     # both variable-base algorithms at 2^10 against the exact host oracle, and
     # one 2^14-point Pippenger MSM timed beside the bit-serial chunk
     want = msm_host.msm(host_pts, host_sc)
@@ -707,6 +771,47 @@ def msm_times(dev):
         config.set_config(prev)
     assert got == g1_vec.point_from_device(tabs.msm(vsc)), "bit-serial and fixed-base commits differ"
     print(json.dumps({"msm_times": out}), flush=True)
+
+
+def setup_times(dev):
+    """The two set-up kernels at the main path's shapes, through entry points
+    that every version of the package has (copy the script beside an older
+    package to time that one on the same card): ``srs.powers_of_tau`` of the
+    generator over 2^16 + 6 and 2^10 lanes, its first call in the process
+    (which builds the table of multiples, where the version has one) and
+    later calls; the fixed-base tables of the 2^16 + 6-point SRS (8193
+    groups, as ``FixedBaseTables`` pads them) and of one 2^14-point chunk;
+    and a digest of the SRS's tables, which every version must give alike
+    (affine entries are unique)."""
+    import hashlib
+
+    import torch
+
+    from baby_plonk_tpu_torch.ops import msm_fixed, srs
+
+    out = {}
+    base = srs.generator_base(dev)
+    n = (1 << 16) + 6
+    sc = srs.tau_scalars(n, TAU, dev)
+    sc10 = sc[:, : 1 << 10].contiguous()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pts = srs.powers_of_tau(sc, base)
+    torch.cuda.synchronize()
+    out["powers_of_tau_first_call_ms"] = (time.perf_counter() - t) * 1e3
+    out["powers_of_tau_65542_ms"] = cuda_ms(lambda: srs.powers_of_tau(sc, base), 5)
+    out["powers_of_tau_1024_ms"] = cuda_ms(lambda: srs.powers_of_tau(sc10, base), 5)
+    if hasattr(srs, "base_tables"):
+        def fresh_table():
+            srs.base_tables.clear()
+            return srs.base_table(base)
+        out["table_of_multiples_ms"] = cuda_ms(fresh_table, 3)
+    tabs = msm_fixed.FixedBaseTables(pts)
+    out["tables_8193_groups_ms"] = cuda_ms(lambda: msm_fixed.FixedBaseTables(pts).tables(), 3)
+    chunk = tuple(c[:, : msm_fixed.CHUNK].contiguous() for c in pts)
+    out["tables_one_chunk_ms"] = cuda_ms(lambda: msm_fixed.build_tables(*chunk), 3)
+    out["srs_tables_sha256"] = hashlib.sha256(tabs.tables().cpu().numpy().tobytes()).hexdigest()
+    print(json.dumps({"setup_times": out}), flush=True)
 
 
 class Count:
@@ -784,7 +889,10 @@ def main_path(dev, n, counters):
     from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, Verifier, mul_chain
     from baby_plonk_tpu_torch.utils.metrics import get_metrics
 
+    from baby_plonk_tpu_torch.ops import srs
+
     zero_counts(counters)
+    srs.base_tables.clear()  # the SRS builds the generator's table as a fresh process does
     t = time.perf_counter()
     setup = Setup.generate_srs_device(n + 6, TAU, cache=False, device=dev)
     torch.cuda.synchronize()
@@ -1256,7 +1364,7 @@ def main():
 
     t = time.perf_counter()
     kernels.library()
-    for source in ("field.cu", "ntt.cu", "msm.cu", "msm_fixed.cu"):
+    for source in ("field.cu", "ntt.cu", "msm.cu", "msm_fixed.cu", "srs.cu"):
         for line in kernels.resource_usage(source).splitlines():
             if "Compiling entry" in line or "stack frame" in line or "Used" in line:
                 print(f"  ptxas, {source}: {line.strip()}", flush=True)
@@ -1265,6 +1373,10 @@ def main():
 
     if "--msm-times" in sys.argv:
         msm_times(dev)
+        print(f"card: {card}", flush=True)
+        return
+    if "--setup-times" in sys.argv:
+        setup_times(dev)
         print(f"card: {card}", flush=True)
         return
 
@@ -1279,11 +1391,10 @@ def main():
 
     # 4. main path
     counters = kernel_counters()
-    #: wrappers with no launch on the main path: the variable-base path's
-    #: kernels, the mesh's form of round 3, and the subtraction (the same
-    #: kernel as the addition), which the fused round-3 expression took off
-    #: every prove
-    off_main = ("msm.msm_partials", "g1_vec.pdouble", "prover_kernels.round3_combine (zw)", "limbs.sub_mod")
+    #: wrappers with no launch on the main path: the bit-serial MSM, the
+    #: mesh's form of round 3, and the subtraction (the same kernel as the
+    #: addition), which the fused round-3 expression took off every prove
+    off_main = ("msm.msm_partials", "prover_kernels.round3_combine (zw)", "limbs.sub_mod")
     t = time.perf_counter()
     run_counts, warm_counts, circuit, single_s = main_path(dev, 1 << 16, counters)
     print(f"  launches, whole run: {json.dumps(run_counts)}", flush=True)

@@ -10,7 +10,7 @@ import torch
 from baby_plonk_tpu_torch.fields import fr
 from baby_plonk_tpu_torch.ops import g1_vec, kernels, limbs, msm, msm_fixed, msm_pippenger, ntt, srs
 
-from torch_port_util import field_ints
+from torch_port_util import edge_groups, field_ints
 
 pytestmark = pytest.mark.gpu
 
@@ -99,6 +99,46 @@ def test_msm_and_srs(dev):
     assert g1_vec.points_from_device(red) == g1_vec.points_from_device(
         g1_vec.tree_reduce(tuple(c.cpu() for c in got)))
     np.testing.assert_equal(len(g1_vec.points_from_device(red)), 2)
+
+
+def test_build_tables_edge_groups_ragged(dev):
+    """The table build's three launches against the plain version on groups
+    of cancelling, repeated and identity points, at group counts that leave
+    a block of 4 groups part empty, and on 13 groups of SRS points."""
+    pts = g1_vec.points_to_device([p for g in edge_groups() for p in g], dev)
+    for G in (1, 3, 5, 8):
+        sub = tuple(c[:, : 8 * G].contiguous() for c in pts)
+        before = msm_fixed.build_tables.launches
+        got = msm_fixed.build_tables(*sub)
+        assert msm_fixed.build_tables.launches == before + 1
+        assert torch.equal(got, msm_fixed.build_tables_plain(*sub)), G
+    srs_pts = srs.powers_of_tau_device(8 * 13, 4242, dev)
+    assert torch.equal(msm_fixed.build_tables(*srs_pts), msm_fixed.build_tables_plain(*srs_pts))
+
+
+def test_powers_of_tau_edge_scalars_two_bases(dev):
+    """The windowed kernel against its plain version limb for limb (each
+    with a table of its own making) and against the host's multiples, for
+    edge scalars at a lane count that leaves a block part empty, with the
+    generator and a second base: each base gets its table on the card."""
+    from baby_plonk_tpu_torch.curves.g1 import G1
+
+    ints = [0, 1, 2, fr.Q - 1, fr.Q - 2, 1 << 254] + field_ints(31, fr.Q, 31)
+    sc = limbs.FR.pack_raw(ints, dev)
+    for point in (G1.generator(), G1.generator() * 0xC0FFEE):
+        base = torch.cat(g1_vec.points_to_device([point], dev), dim=1)
+        before = g1_vec.pdouble.launches
+        chain = srs.doubling_chain(base)
+        assert g1_vec.pdouble.launches == before + srs.CHAIN - 1
+        assert all(torch.equal(g.long(), w) for g, w in zip(chain, srs.doubling_chain_plain(base)))
+        before = srs.powers_of_tau.launches
+        got = srs.powers_of_tau(sc, base)
+        assert srs.powers_of_tau.launches == before + 1
+        assert torch.equal(srs.base_table(base), msm_fixed.build_tables_plain(*srs.doubling_chain_plain(base)))
+        want = srs.powers_of_tau_plain(sc, base)
+        assert all(torch.equal(g.long(), w) for g, w in zip(got, want))
+        assert g1_vec.points_from_device(got) == [point * s for s in ints]
+    assert len([k for k in srs.base_tables if k[0] == str(dev)]) >= 2
 
 
 @pytest.mark.parametrize("windows", [1, 4, 8])

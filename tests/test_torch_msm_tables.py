@@ -1,7 +1,8 @@
 """Port fixed-base table build (plain CPU path) against the JAX package's
 msm_fixed._build_tables on the same 64 points: the port's packed tables
 (G, 256, 24), brought back to the JAX layout by convert.tables_to_numpy,
-equal it limb for limb."""
+equal it limb for limb; so do groups of cancelling, repeated and identity
+points."""
 import numpy as np
 import torch
 
@@ -10,7 +11,7 @@ from baby_plonk_tpu.ops import msm_fixed as jmf
 from baby_plonk_tpu_torch import convert
 from baby_plonk_tpu_torch.ops import g1_vec, msm_fixed
 
-from torch_port_util import g1_points, jax_points, one_torch_thread  # noqa: F401  (fixture)
+from torch_port_util import edge_groups, g1_points, jax_points, one_torch_thread  # noqa: F401  (fixture)
 
 
 def test_build_tables_match_jax():
@@ -46,3 +47,28 @@ def test_pack_unpack_roundtrip():
     assert int(packed[1, 9, 23]) & 0xFFFFFFFF == int(ty[22, 1, 9]) | int(ty[23, 1, 9]) << 16
     back = msm_fixed.unpack_tables(packed)
     assert torch.equal(back[0], tx) and torch.equal(back[1], ty)
+
+
+def test_build_tables_edge_groups():
+    """Cancelling, repeated and identity points: the plain tables equal the
+    JAX package's limb for limb (the same 64-point shape as above, one JAX
+    compile) and every entry equals the host's subset sum, the identity as
+    the (0, 0) marker."""
+    groups = edge_groups()
+    pts = [p for g in groups for p in g]
+    jpts = jg1.points_to_device(jax_points(pts))
+    want = tuple(np.asarray(t) for t in jmf._build_tables(*jpts))
+    got = msm_fixed.build_tables_plain(*g1_vec.points_to_device(pts, "cpu"))
+    for g, w in zip(convert.tables_to_numpy(got), want):
+        assert np.array_equal(g, w.astype(np.uint32))
+    tx, ty = msm_fixed.unpack_tables(got)
+    xs, ys = (g1_vec.FQ.unpack_mont(t.reshape(24, -1)) for t in (tx, ty))
+    for gi, group in enumerate(groups):
+        sums = [group[0] - group[0]]
+        for idx in range(1, 256):
+            msb = idx.bit_length() - 1
+            sums.append(sums[idx - (1 << msb)] + group[msb])
+        for idx, s in enumerate(sums):
+            a = s.to_affine()
+            assert (xs[gi * 256 + idx], ys[gi * 256 + idx]) == (a or (0, 0)), (gi, idx)
+    assert not got[2].any()  # a group of identities: every entry the marker

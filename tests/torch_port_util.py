@@ -40,3 +40,24 @@ def jax_points(points) -> list:
     from baby_plonk_tpu.curves.g1 import G1
 
     return [G1.identity() if a is None else G1.from_affine(*a) for a in affine(points)]
+
+
+def edge_groups() -> list:
+    """8 groups of 8 port G1 points whose subset sums hit every special case
+    of the table build: a point beside its negation (sums that cancel to
+    the identity), repeated points (sums that double), identity points
+    (Z = 0 inputs), and both at once."""
+    from baby_plonk_tpu_torch.curves.g1 import G1
+
+    P = g1_points(12, 16)
+    O = G1.identity()
+    return [
+        [P[0], -P[0], P[1], P[2], -P[2], P[3], P[4], P[5]],
+        [P[6]] * 8,
+        [O] * 8,
+        [O, P[7], O, -P[7], P[7], O, P[7] + P[7], P[8]],
+        [P[9], P[9], -P[9], P[10], P[10], P[10] + P[10], -P[10], O],
+        [P[11], P[12], P[13], P[11] + P[12], -(P[11] + P[12] + P[13]), P[14], P[15], -P[14]],
+        P[0:8],
+        [P[8], -P[8], P[8], -P[8], P[8], -P[8], P[8], -P[8]],
+    ]
