@@ -46,6 +46,27 @@ __device__ __forceinline__ void g1_store(int32_t* X, int32_t* Y, int32_t* Z, int
   store<Fq>(Z + i, stride, p.z);
 }
 
+// A point in shared memory, word-major over ``stride`` slots (word w of X at
+// sm[w * stride + i], then Y, then Z): a warp's accesses to consecutive slots
+// fall on distinct banks.
+__device__ __forceinline__ void g1_smem_put(uint32_t* sm, int stride, int i, const G1P& p) {
+#pragma unroll
+  for (int w = 0; w < 12; w++) {
+    sm[w * stride + i] = p.x[w];
+    sm[(12 + w) * stride + i] = p.y[w];
+    sm[(24 + w) * stride + i] = p.z[w];
+  }
+}
+
+__device__ __forceinline__ void g1_smem_get(G1P& p, const uint32_t* sm, int stride, int i) {
+#pragma unroll
+  for (int w = 0; w < 12; w++) {
+    p.x[w] = sm[w * stride + i];
+    p.y[w] = sm[(12 + w) * stride + i];
+    p.z[w] = sm[(24 + w) * stride + i];
+  }
+}
+
 // r = u v - (c0 + c1) for u = a0 + a1, v = b0 + b1: the sums stay unreduced,
 // u, v < 2p and u v < 4 p^2 < R p, inside the product's bound.
 __device__ __forceinline__ void g1_cross(uint32_t r[12], const uint32_t a0[12], const uint32_t a1[12],
@@ -136,6 +157,28 @@ __device__ __forceinline__ void g1_add_mixed(G1P& p, const uint32_t qx[12], cons
   add<Fq>(u, t1, bz);    // z3t
   sub<Fq>(t1, t1, bz);   // t1m
   g1_add_tail(p, t0, t1, u, t3, t4, t5);
+}
+
+// Halving tree in shared memory (sm: 36 words a thread of the block). Each
+// unit of U consecutive threads (U a power of two) sums the points its
+// threads hold in acc: level h = U/2, ..., 1 adds the point of thread u + h
+// into thread u (u = threadIdx.x % U), the order of the plain halving loops,
+// so thread u = 0 of the unit ends with the sum in acc, limb for limb. A
+// thread with ``active`` false adds nothing; no active thread reads its slot
+// when a unit is all active or all not. Every thread of the block calls it:
+// it holds the barriers. ``tmp`` is scratch.
+__device__ __forceinline__ void g1_smem_tree(G1P& acc, G1P& tmp, uint32_t* sm, int U, bool active) {
+  const int tid = threadIdx.x, slots = blockDim.x, u = tid % U;
+  g1_smem_put(sm, slots, tid, acc);
+#pragma unroll 1
+  for (int h = U >> 1; h >= 1; h >>= 1) {
+    __syncthreads();
+    if (active && u < h) {
+      g1_smem_get(tmp, sm, slots, tid + h);
+      g1_add(acc, tmp);
+      g1_smem_put(sm, slots, tid, acc);
+    }
+  }
 }
 
 }  // namespace bpt

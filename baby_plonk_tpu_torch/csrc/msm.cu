@@ -5,7 +5,7 @@
 // Replaces: msm_pallas_partials + _msm_tile_kernel (baby_plonk_tpu/ops/
 // pallas_kernels.py:67-137), the fused tile kernel of the generic commit
 // MSM, and its XLA twin _msm_kernel (ops/msm.py:28-51). The per-tile
-// partials are summed by the g1.cu addition launcher
+// partials are summed by the g1.cu tree kernel in one launch
 // (ops/g1_vec.py::combine_partials, the counterpart of _reduce_partials,
 // pallas_kernels.py:139-156).
 //
@@ -45,24 +45,6 @@ namespace {
 constexpr int NBITS = 255;
 constexpr int MAX_TILE = 256;
 
-__device__ __forceinline__ void smem_put(uint32_t* sm, int tile, int lane, const G1P& p) {
-#pragma unroll
-  for (int w = 0; w < 12; w++) {
-    sm[w * tile + lane] = p.x[w];
-    sm[(12 + w) * tile + lane] = p.y[w];
-    sm[(24 + w) * tile + lane] = p.z[w];
-  }
-}
-
-__device__ __forceinline__ void smem_get(G1P& p, const uint32_t* sm, int tile, int lane) {
-#pragma unroll
-  for (int w = 0; w < 12; w++) {
-    p.x[w] = sm[w * tile + lane];
-    p.y[w] = sm[(12 + w) * tile + lane];
-    p.z[w] = sm[(24 + w) * tile + lane];
-  }
-}
-
 // points (24, n) x3 Montgomery projective; scalars (16, n) raw limbs;
 // out (24, tiles) x3 with tiles = ceil(n / tile) = gridDim.x and
 // blockDim.x == tile; dynamic shared memory: 36 words a lane.
@@ -92,16 +74,7 @@ msm_bitserial_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__
     }
   }
 
-  smem_put(sm, tile, tid, acc);
-#pragma unroll 1
-  for (int half = tile >> 1; half >= 1; half >>= 1) {
-    __syncthreads();
-    if (tid < half) {
-      smem_get(base, sm, tile, tid + half);
-      g1_add(acc, base);
-      smem_put(sm, tile, tid, acc);
-    }
-  }
+  g1_smem_tree(acc, base, sm, tile, true);
   if (tid == 0) g1_store(ox, oy, oz, blockIdx.x, gridDim.x, acc);
 }
 

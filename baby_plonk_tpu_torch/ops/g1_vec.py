@@ -10,8 +10,9 @@ there (padd :132, pdouble :165, padd_mixed :188); the plain versions here
 compute the same canonical coordinates as the JAX package and as the
 device functions of ``csrc/g1.cuh``.
 
-Kernels (csrc/g1.cu): ``bpt_g1_padd``, the step of ``tree_reduce`` and of
-the Pippenger scans, and ``bpt_g1_pdouble``, the Pippenger window shift.
+Kernels (csrc/g1.cu): ``bpt_g1_tree``, every set of a batch summed in one
+launch (``tree_reduce``); ``bpt_g1_padd``, the step of the Pippenger scans;
+``bpt_g1_pdouble``, the Pippenger window shift and the SRS's doubling chain.
 """
 from __future__ import annotations
 
@@ -180,18 +181,95 @@ def pdouble(p):
 pdouble.launches = 0
 
 
+def tree_reduce_plain(p):
+    """Plain version of ``tree_reduce``: one ``padd_plain`` a halving level,
+    on int64 lanes."""
+    n = p[0].shape[-1]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"tree_reduce: {n} lanes, not a power of two")
+    p = _to64(p)
+    while n > 1:
+        h = n // 2
+        p = padd_plain(tuple(c[..., :h] for c in p), tuple(c[..., h:n] for c in p))
+        n = h
+    return _to32(tuple(c[..., 0] for c in p))
+
+
+#: threads of a block of the tree kernel at most (csrc/g1.cu, TREE_THREADS)
+TREE_THREADS = 256
+#: lanes a block takes at least where a set is split over blocks: one warp
+TREE_MIN_LANES = 64
+
+
+def tree_plan(n: int, sets: int, sms: int) -> tuple[int, int]:
+    """(B, units) of one ``bpt_g1_tree`` launch over ``sets`` sets of n
+    lanes on a card of ``sms`` SMs: B blocks a set, each taking n / B lanes
+    at two a thread, as few as fit a block, then more until the blocks fill
+    the SMs (down to TREE_MIN_LANES a block); with B = 1, ``units`` sets a
+    block. The set's last block takes the B points at two a thread, so
+    n / B and B stay within 2 TREE_THREADS (n at most 2^18)."""
+    B = 1
+    while n // B > 2 * TREE_THREADS:
+        B *= 2
+    while sets * B < sms and n // B > TREE_MIN_LANES:
+        B *= 2
+    if B > 2 * TREE_THREADS:
+        raise ValueError(f"tree_reduce: {n} lanes a set, more than one launch takes")
+    units = min(TREE_THREADS // max(n // B // 2, 1), sets) if B == 1 else 1
+    return B, units
+
+
+def tree_layout(c):
+    """(limb stride, lane stride, inner, outer stride, inner stride) that
+    put element (l, set s, lane k) of a (24, *batch, n) view at l limb +
+    (s // inner) outer + (s % inner) inner_stride + k lane, in elements from
+    its first; None when its batch axes do not fold into two strides."""
+    axes = []
+    for size, stride in zip(c.shape[1:-1], c.stride()[1:-1]):
+        if size == 1:
+            continue
+        if axes and axes[-1][1] == size * stride:
+            axes[-1] = (axes[-1][0] * size, stride)
+        else:
+            axes.append((size, stride))
+    if len(axes) > 2:
+        return None
+    axes = [(1, 0)] * (2 - len(axes)) + axes
+    return c.stride(0), c.stride(-1), axes[1][0], axes[0][1], axes[1][1]
+
+
 def tree_reduce(p):
     """Sum a (24, ..., n) batch of points over the last axis (n a power of
     two) by halving: level s adds lane i + n/2^(s+1) into lane i, the
     order of ``baby_plonk_tpu/ops/g1_vec.py::tree_reduce``. Returns
-    (24, ...) coordinates."""
+    (24, ...) coordinates. On the card ONE launch of ``bpt_g1_tree`` a
+    call, which reads the caller's view in place where its batch axes fold
+    into two strides (else one copy a coordinate)."""
     n = p[0].shape[-1]
-    assert n & (n - 1) == 0, n
-    while n > 1:
-        h = n // 2
-        p = padd(tuple(c[..., :h] for c in p), tuple(c[..., h:n] for c in p))
-        n = h
-    return tuple(c[..., 0] for c in p)
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"tree_reduce: {n} lanes, not a power of two")
+    if kernels.on_cpu(*p):
+        return tree_reduce_plain(p)
+    dev = kernels.check_cuda(*p)
+    shape = p[0].shape
+    if shape[0] != FQ.L or any(c.shape != shape for c in p):
+        raise ValueError("tree_reduce: coordinates must share one (24, ..., n) shape")
+    layout = tree_layout(p[0])
+    if layout is None or any(c.stride() != p[0].stride() for c in p):
+        p = tuple(c.contiguous() for c in p)
+        layout = tree_layout(p[0])
+    out = tuple(torch.empty(shape[:-1], dtype=torch.int32, device=dev) for _ in range(3))
+    sets = out[0][0].numel()
+    if sets:
+        B, units = tree_plan(n, sets, torch.cuda.get_device_properties(dev).multi_processor_count)
+        scratch = torch.empty(36 * sets * B + sets if B > 1 else 0, dtype=torch.int32, device=dev)
+        kernels.launch("bpt_g1_tree", dev, *(kernels.ptr(c) for c in p), *layout, sets, n, B, units,
+                       *(kernels.ptr(c) for c in out), kernels.ptr(scratch) if B > 1 else None)
+        tree_reduce.launches += 1
+    return out
+
+
+tree_reduce.launches = 0
 
 
 def combine_partials(p):

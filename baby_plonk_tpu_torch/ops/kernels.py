@@ -57,6 +57,7 @@ _SIGNATURES = {
     "bpt_ntt_sub": [_P, _P, _P, _P] + [_I] * 11 + [ctypes.c_int, _P],
     "bpt_g1_padd": [_P] * 9 + [_I, _P],
     "bpt_g1_pdouble": [_P] * 6 + [_I, _P],
+    "bpt_g1_tree": [_P] * 3 + [_I] * 9 + [_P] * 5,
     "bpt_msm_bitserial": [_P] * 4 + [_I, ctypes.c_int] + [_P] * 4,
     "bpt_msm_build_tables": [_P, _P, _P, _I] + [_P] * 5,
     "bpt_msm_fixed": [_P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],

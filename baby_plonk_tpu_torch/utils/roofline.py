@@ -85,3 +85,12 @@ def powers_of_tau_work(sc):
     nonzero = sum(int((srs._digit(sc, k) != 0).sum()) for k in range(srs.WINDOWS))
     return ((FR_BYTES + 3 * FQ_BYTES) * sc.shape[-1] + FQ_BYTES * 256 * srs.WINDOWS,
             FQ_MUL * MIXED_MULS * nonzero)
+
+
+def tree_work(n, sets):
+    """(bytes, multiply-adds) of one group tree (``g1_vec.tree_reduce``) over
+    ``sets`` sets of n points: n points read and one written a set; n - 1
+    complete additions a set. Its floor is its depth, log2(n) dependent
+    additions, which no count of bytes or multiply-adds shows: chip_smoke
+    states it beside this bound, from the time of one addition on one lane."""
+    return 3 * FQ_BYTES * sets * (n + 1), FQ_MUL * ADD_MULS * sets * (n - 1)

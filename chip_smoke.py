@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and kernel checks)
-    python3 chip_smoke.py --msm-times  # phases 1-2, then only the two commit MSMs timed at
+    python3 chip_smoke.py --msm-times  # phases 1-2, then only the commit MSMs and trees timed at
                                      # the prove's shapes through entry points that every
                                      # version of the package has (copy the script beside an
                                      # older package to time that one on the same card)
     python3 chip_smoke.py --setup-times  # phases 1-2, then only the two set-up kernels (powers of
                                      # tau, the fixed-base tables) timed at the main path's shapes,
                                      # the same way
+    python3 chip_smoke.py --prove-profile  # phases 1-2, then one warm 2^16 prove profiled, its
+                                     # addition and tree launches and copy kernels, the same way
 
 The plans, cold and warm proves with their round spans, timed in a process
 that runs nothing else: ``python -m baby_plonk_tpu_torch bench``.
@@ -32,6 +34,10 @@ Phases, each printed with its seconds:
      take seconds a chunk) and timed at the shapes the proves give them;
      round 3's combination also in the mesh's form, z(w x) from a row of
      its own, at the shapes of a shard of phase 9's D = 4 and D = 8 proves.
+     The group tree at the fixed-base commit's shapes, the Horner partials'
+     (24, 3, W, 4, 2048) view and the chunk combine (24, 3, W, 8), one launch
+     each, with its depth floor beside the bound: log2(n) times the device
+     time of one addition on one lane of shape (24,) (the g1_padd row).
      The set-up kernels at the main path's widths: powers of tau over 2^16 +
      6 lanes (and 2^10, and the scalars 0, 1, 2, r - 1) with the plain
      version's own table of multiples, the table (255 doublings, then the
@@ -41,7 +47,8 @@ Phases, each printed with its seconds:
      multiples dropped first, so the SRS builds it), a 2^16-gate multiply chain,
      a cold and a warm prove, verify, a wrong public input rejected; every
      kernel of the path must have launched, the sub-NTT kernel exactly twice
-     a transform, the field product fewer than 220 times a warm prove; then
+     a transform, the field product fewer than 220 times a warm prove, the
+     group tree 3 times a commit and the elementwise addition never; then
      warm proves under torch.profiler (until two readings agree):
      device time by kernel name and the busy share, no index_select kernel
   5. cross-engine: at 2^8 gates with fixed blinding the proof bytes equal
@@ -233,7 +240,7 @@ def check_kernels(dev, results):
     # the peaks and work counts behind every bound (shared with the bench)
     from baby_plonk_tpu_torch.utils.roofline import (ADD_MULS, DOUBLE_MADS, FQ_BYTES, FQ_MUL, FQ_SQR, FR_BYTES,
                                                      FR_MUL, FR_SQR, bound, horner_work, powers_of_tau_work,
-                                                     tables_work)
+                                                     tables_work, tree_work)
 
     rng = np.random.default_rng(SEED)
     FR, FQ = limbs.FR, limbs.FQ
@@ -626,19 +633,50 @@ def check_kernels(dev, results):
            (timed_w[3, w3][1], host_us(lambda: msm_fixed.msm_join(win, 16), 3)), join_plain_ms, 6 * FQ_BYTES * 3 * w3,
            3 * (w3 - 1) * (DOUBLE_MADS * s_w + FQ_MUL * ADD_MULS),
            shape=f"3 sets, {w3} windows of {s_w} bits", plain_shape="3 sets, 16 windows of 16 bits")
-    del tabs, small_tabs
-    tx = t_k
-    parts = tuple(c[:, :, 0] for c in msm_fixed.msm_fixed_horner(tx, scal, 1))
-    halves = (tuple(c[..., : chunk // 16] for c in parts), tuple(c[..., chunk // 16 :] for c in parts))
-    p_k = g1_vec.padd(*halves)
-    p_p = g1_vec.padd_plain(*(tuple(c.to(torch.int64) for c in h) for h in halves))
-    record("g1_padd", "baby_plonk_tpu_torch/csrc/g1.cu", "baby_plonk_tpu/ops/pallas_kernels.py:139",
-           "g1_vec.padd", max_abs_err(p_k, p_p), timed(lambda: g1_vec.padd(*halves), 20),
-           cuda_ms(lambda: g1_vec.padd_plain(*(tuple(c.to(torch.int64) for c in h) for h in halves)), 2),
-           9 * FQ_BYTES * (chunk // 16), FQ_MUL * ADD_MULS * (chunk // 16))
-    # the other shapes the paths give the addition: the Pippenger prove scans
+    # -- the addition on one lane of shape (24,), the Pippenger running total:
+    # its device time is the latency of one addition, the depth floor's unit
+    one_a, one_b = (tuple(c[:, i].contiguous() for c in pts) for i in (1, 2))
+    one64 = tuple(tuple(c.to(torch.int64) for c in q) for q in (one_a, one_b))
+    add_ms, add_us = timed(lambda: g1_vec.padd(one_a, one_b), 100)
+    record("g1_padd", "baby_plonk_tpu_torch/csrc/g1.cu", "baby_plonk_tpu/ops/g1_vec.py:132", "g1_vec.padd",
+           max_abs_err(g1_vec.padd(one_a, one_b), g1_vec.padd_plain(*one64)), (add_ms, add_us),
+           cuda_ms(lambda: g1_vec.padd_plain(*one64), 5), 9 * FQ_BYTES, FQ_MUL * ADD_MULS, run="pippenger",
+           shape="one lane (24,)")
+
+    # -- the group tree at the fixed-base commit's shapes: the Horner partials
+    # of 3 sets at the chosen W, their 4 whole chunks of 2048 groups as the
+    # commit's (24, 3, W, 4, 2048) view of them (read in place), then the
+    # chunk combine (24, 3, W, 8): the 4 chunk sums, the rest's group and 3
+    # identities. Bound: n - 1 additions a set, n points read and one written;
+    # beside it the depth floor, log2(n) dependent additions of add_ms each
+    part = msm_fixed.msm_fixed_horner(tabs.tables(), sc_path3, w3)  # (24, 3, W, g_path)
+    full = g_path // groups
+    whole = tuple(c[..., : full * groups].reshape(24, 3, w3, full, groups) for c in part)
+    tail = tuple(c[..., full * groups :] for c in part)
+    ident = g1_vec.pidentity((3, w3, 8 - full - tail[0].shape[-1]), dev)
+    before = (g1_vec.tree_reduce.launches, g1_vec.padd.launches)
+    sums = g1_vec.tree_reduce(whole)
+    assert (g1_vec.tree_reduce.launches, g1_vec.padd.launches) == (before[0] + 1, before[1]), (
+        "tree_reduce is one launch of the tree kernel and no addition launch")
+    combine_in = tuple(torch.cat([s, t, e], dim=-1) for s, t, e in zip(sums, tail, ident))
+    for label, p in (("", whole), (" (combine)", combine_in)):
+        want, plain_ms = once_ms(lambda: g1_vec.tree_reduce_plain(p))
+        n_t, sets_t = p[0].shape[-1], p[0][0].numel() // p[0].shape[-1]
+        levels, plan = n_t.bit_length() - 1, g1_vec.tree_plan(n_t, sets_t, sms)
+        nbytes, mads = tree_work(n_t, sets_t)
+        ms, host = timed(lambda: g1_vec.tree_reduce(p), 20)
+        floor_ms = max(levels * add_ms, bound(nbytes, mads)[0])
+        record(f"g1_tree{label}", "baby_plonk_tpu_torch/csrc/g1.cu", "baby_plonk_tpu/ops/g1_vec.py:298",
+               "g1_vec.tree_reduce", max_abs_err(g1_vec.tree_reduce(p), want), (ms, host), plain_ms, nbytes, mads,
+               shape=str(tuple(p[0].shape)), levels=levels, depth_floor_ms=levels * add_ms, add_ms=add_ms,
+               share_of_floor=floor_ms / ms, plan=plan)
+        print(f"  g1_tree{label} {tuple(p[0].shape)}: depth floor {levels} x {add_ms:.4f} ms = "
+              f"{levels * add_ms:.4f} ms, share of the larger floor {floor_ms / ms:.2f}; plan (B, sets a block) "
+              f"{plan}", flush=True)
+    del tabs, small_tabs, part, whole, tail, combine_in
+    # the other shapes the Pippenger path gives the addition: the scan over
     # the n + 2 = 65,538 sorted points of a commit and the 2^14 buckets of a
-    # window, and every path ends its sums on one lane of shape (24,)
+    # window
     n_scan = (1 << 16) + 2
     for lanes, label in ((n_scan, "65538 lanes"), (chunk, "2^14 lanes")):
         pa = tuple(torch.cat([c] * (lanes // chunk) + [c[:, : lanes % chunk]], dim=1) for c in pts)
@@ -651,11 +689,6 @@ def check_kernels(dev, results):
                cuda_ms(lambda: g1_vec.padd_plain(pa64, pb64), 2),
                9 * FQ_BYTES * lanes, FQ_MUL * ADD_MULS * lanes, run="pippenger")
     pa = pb = pa64 = pb64 = None
-    one_a, one_b = (tuple(c[:, i].contiguous() for c in pts) for i in (1, 2))
-    assert one_a[0].shape == (24,)
-    assert max_abs_err(g1_vec.padd(one_a, one_b), g1_vec.padd_plain(
-        *(tuple(c.to(torch.int64) for c in q) for q in (one_a, one_b)))) == 0, "padd on one lane"
-    print("  g1_padd on one lane of shape (24,): exact", flush=True)
     # one MSM at 2^10 against the exact host oracle
     m = 1 << 10
     host_pts = g1_vec.points_from_device(tuple(c[:, :m] for c in pts))
@@ -741,7 +774,11 @@ def msm_times(dev):
     """The commit MSMs at the shapes a 2^16-gate prove gives them: 3 sets and
     1 set of 2^16 + 2 scalars through ``FixedBaseTables.msm_many`` over the
     2^16 + 6-point SRS, and 65,538 points through ``msm.msm_device_arrays``
-    (bit-serial), with the launches each makes."""
+    (bit-serial), with the launches each makes; the group tree alone over
+    the fixed-base commit's whole chunks of Horner partials, and a digest of
+    the commits' coordinates, which every version must give alike."""
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -753,12 +790,31 @@ def msm_times(dev):
     pts = srs.powers_of_tau(srs.tau_scalars(n_sc + 4, TAU, dev), srs.generator_base(dev))
     tabs = msm_fixed.FixedBaseTables(pts)
     out = {}
-    for P in (3, 1):
+    digest = hashlib.sha256()
+    for P in (3, 2, 1):  # the sets of a prove's four commits: 3, 1, 3, 2
         sets = [random_field(rng, limbs.FR, (n_sc,), dev) for _ in range(P)]
-        tabs.msm_many(sets)
-        before = msm_fixed.msm_fixed_horner.launches
+        for c in tabs.msm_many(sets):
+            digest.update(c.cpu().numpy().tobytes())
+        tree = getattr(g1_vec.tree_reduce, "launches", 0)  # a counter since the tree kernel
+        before = msm_fixed.msm_fixed_horner.launches, g1_vec.padd.launches, tree
         out[f"fixed_base_commit_{P}_sets_ms"] = cuda_ms(lambda: tabs.msm_many(sets), 5)
-        out[f"fixed_base_commit_{P}_sets_horner_launches"] = (msm_fixed.msm_fixed_horner.launches - before) // 6
+        out[f"fixed_base_commit_{P}_sets_horner_launches"] = (msm_fixed.msm_fixed_horner.launches - before[0]) // 6
+        out[f"fixed_base_commit_{P}_sets_padd_launches"] = (g1_vec.padd.launches - before[1]) // 6
+        out[f"fixed_base_commit_{P}_sets_tree_launches"] = (
+            getattr(g1_vec.tree_reduce, "launches", 0) - before[2]) // 6
+        # the tree over the commit's whole chunks, (24, P, W, 4, 2048)
+        full, rest = tabs.launch_groups(n_sc)
+        gc = tabs.chunk // msm_fixed.GROUP
+        G = full * gc + rest
+        W = msm_fixed.windows_for(P * G, dev)
+        sc = torch.zeros((16, P, G * msm_fixed.GROUP), dtype=torch.int32, device=dev)
+        for i, sv in enumerate(sets):
+            sc[:, i, :n_sc] = sv
+        part = msm_fixed.msm_fixed_horner(tabs.tables(), sc, W)
+        whole = tuple(c[..., : full * gc].reshape(24, P, W, full, gc) for c in part)
+        out[f"tree_{P}_sets_shape"] = str(tuple(whole[0].shape))
+        out[f"tree_{P}_sets_ms"] = cuda_ms(lambda: g1_vec.tree_reduce(whole), 10)
+    out["fixed_base_commits_sha256"] = digest.hexdigest()
     prev = config.get_config()
     config.set_config(config.Config(commit_fixed_base=False, msm_algorithm="bitserial"))
     try:
@@ -844,6 +900,7 @@ def kernel_counters():
         "prover_kernels.grand_product_fg": prover_kernels.grand_product_fg,
         "kernels.ntt_sub": kernels.ntt_sub,
         "kernels.ntt_sub_4step": kernels.ntt_sub_4step, "g1_vec.padd": g1_vec.padd,
+        "g1_vec.tree_reduce": g1_vec.tree_reduce,
         "msm_fixed.build_tables": msm_fixed.build_tables,
         "msm_fixed.msm_fixed_horner": msm_fixed.msm_fixed_horner,
         "msm_fixed.msm_join": msm_fixed.msm_join,
@@ -954,11 +1011,41 @@ def profile_prove(prove, warm_s):
         print(f"    {ms:9.3f} ms  {count:5d} x  {name[:90]}", flush=True)
     assert not any("index" in r[0].lower() and "elect" in r[0].lower() for r in rows), (
         "an index_select kernel ran in the fixed-base prove")
-    print("    torch copy and concatenation kernels: "
-          + ", ".join(f"{sum(r[1] for r in rows if word in r[0].lower())} x {word}" for word in ("cat", "memcpy", "copy")),
-          flush=True)
+    copies = {word: sum(r[1] for r in rows if word in r[0].lower()) for word in ("cat", "memcpy", "copy", "memset")}
+    print("    torch copy and concatenation kernels: " + ", ".join(f"{v} x {k}" for k, v in copies.items()), flush=True)
     rest = rows[12:]
     print(f"    {sum(r[2] for r in rest):9.3f} ms  {sum(r[1] for r in rest):5d} x  ({len(rest)} other kernels)", flush=True)
+    return {"device_ms": device_ms, "kernel_launches": sum(r[1] for r in rows), **copies}
+
+
+def prove_profile(dev):
+    """A warm 2^16-gate prove on the fixed-base path, through entry points
+    that every version of the package has (copy the script beside an older
+    package to profile that one on the same card): the elementwise addition
+    and group-tree launches of the warm prove, and one profiled warm prove
+    (device time, kernel launches, torch copy kernels by name)."""
+    import torch
+
+    from baby_plonk_tpu_torch.ops import g1_vec
+    from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, mul_chain
+
+    n = 1 << 16
+    setup = Setup.generate_srs_device(n + 6, TAU, cache=False, device=dev)
+    constraints, witness, _ = mul_chain(n)
+    program = Program.from_strs(constraints, n)
+    engine = TorchEngine(dev)
+    Prover(setup, program, engine).prove(witness)
+    torch.cuda.synchronize()
+    before = g1_vec.padd.launches, getattr(g1_vec.tree_reduce, "launches", 0)
+    t = time.perf_counter()
+    Prover(setup, program, engine).prove(witness)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    out = {"warm_prove_s": warm, "padd_launches": g1_vec.padd.launches - before[0],
+           "tree_launches": getattr(g1_vec.tree_reduce, "launches", 0) - before[1]}
+    out.update(profile_prove(lambda: Prover(setup, program, engine).prove(witness), warm))
+    print(json.dumps({"prove_profile": out}), flush=True)
 
 
 def variable_base_path(dev, counters, circuit):
@@ -1002,6 +1089,8 @@ def variable_base_path(dev, counters, circuit):
     assert run_counts["bitserial"]["msm.msm_partials"] == 9, (
         "the bit-serial prove is 9 commits, one msm_partials launch each")
     assert run_counts["pippenger"]["g1_vec.pdouble"] > 0, "g1_pdouble did not launch in the Pippenger prove"
+    assert run_counts["pippenger"]["g1_vec.padd"] > 0, "g1_padd did not launch in the Pippenger prove"
+    assert run_counts["bitserial"]["g1_vec.padd"] == 0, "g1_padd launched in the bit-serial prove"
     assert run_counts["pippenger"]["msm.msm_partials"] == 0, "the bit-serial kernel launched in the Pippenger prove"
     assert proofs["bitserial"] == proofs["pippenger"] == proofs["fixed"], (
         "the three commit configurations give different proof bytes")
@@ -1201,9 +1290,10 @@ def mesh_path(dev, counters, circuit, fixed_proof):
     for label, c in run_counts.items():
         print(f"  launches, mesh {label} run: {json.dumps(c)}", flush=True)
     for key in ("msm_fixed.msm_fixed_horner", "kernels.ntt_sub", "prover_kernels.round3_combine (zw)",
-                "prover_kernels.grand_product_fg", "limbs.field_scan"):
+                "prover_kernels.grand_product_fg", "limbs.field_scan", "g1_vec.tree_reduce"):
         assert run_counts["fixed"][key] > 0, f"{key} did not launch in the mesh fixed-base run"
     assert run_counts["bitserial"]["msm.msm_partials"] > 0, "msm_partials did not launch in the mesh bit-serial run"
+    assert run_counts["bitserial"]["g1_vec.tree_reduce"] > 0, "tree_reduce did not launch in the mesh bit-serial run"
     assert run_counts["bitserial"]["msm_fixed.msm_fixed_horner"] == 0, "Horner launched on the mesh bit-serial path"
     for c in run_counts.values():
         assert c["kernels.ntt_sub"] == 2 * c["kernels.ntt_sub_4step"], "every transform is two sub-NTT launches"
@@ -1213,7 +1303,7 @@ def mesh_path(dev, counters, circuit, fixed_proof):
 #: the kernels every MeshEngine run of phase 10 must launch, and those of
 #: the fixed-base and the bit-serial commit path
 MP_KERNELS = ("kernels.ntt_sub", "prover_kernels.round3_combine (zw)", "prover_kernels.grand_product_fg",
-              "limbs.field_scan")
+              "limbs.field_scan", "g1_vec.tree_reduce")
 MP_COMMIT = {"fixed": "msm_fixed.msm_fixed_horner", "bitserial": "msm.msm_partials"}
 
 
@@ -1364,7 +1454,7 @@ def main():
 
     t = time.perf_counter()
     kernels.library()
-    for source in ("field.cu", "ntt.cu", "msm.cu", "msm_fixed.cu", "srs.cu"):
+    for source in ("field.cu", "ntt.cu", "g1.cu", "msm.cu", "msm_fixed.cu", "srs.cu"):
         for line in kernels.resource_usage(source).splitlines():
             if "Compiling entry" in line or "stack frame" in line or "Used" in line:
                 print(f"  ptxas, {source}: {line.strip()}", flush=True)
@@ -1377,6 +1467,10 @@ def main():
         return
     if "--setup-times" in sys.argv:
         setup_times(dev)
+        print(f"card: {card}", flush=True)
+        return
+    if "--prove-profile" in sys.argv:
+        prove_profile(dev)
         print(f"card: {card}", flush=True)
         return
 
@@ -1392,9 +1486,10 @@ def main():
     # 4. main path
     counters = kernel_counters()
     #: wrappers with no launch on the main path: the bit-serial MSM, the
-    #: mesh's form of round 3, and the subtraction (the same kernel as the
-    #: addition), which the fused round-3 expression took off every prove
-    off_main = ("msm.msm_partials", "prover_kernels.round3_combine (zw)", "limbs.sub_mod")
+    #: mesh's form of round 3, the subtraction (the same kernel as the
+    #: addition), which the fused round-3 expression took off every prove,
+    #: and the elementwise point addition, which only the Pippenger MSM runs
+    off_main = ("msm.msm_partials", "prover_kernels.round3_combine (zw)", "limbs.sub_mod", "g1_vec.padd")
     t = time.perf_counter()
     run_counts, warm_counts, circuit, single_s = main_path(dev, 1 << 16, counters)
     print(f"  launches, whole run: {json.dumps(run_counts)}", flush=True)
@@ -1409,6 +1504,9 @@ def main():
     assert warm_counts["limbs.mont_mul"] < 220, "a warm prove launches the field product fewer than 220 times"
     assert warm_counts["prover_kernels.round3_combine"] == warm_counts["prover_kernels.grand_product_fg"] == 1
     assert warm_counts["msm_fixed.msm_fixed_horner"] == 4, "a warm prove is 4 commit rounds, one Horner launch each"
+    # a commit's group tree: its whole chunks, its rest's group, the chunk combine
+    assert warm_counts["g1_vec.tree_reduce"] == 3 * 4, "a warm prove's 4 commits are 3 tree launches each"
+    assert warm_counts["g1_vec.padd"] == 0, "the elementwise addition launched in the fixed-base prove"
     for key, count in run_counts.items():
         assert (count > 0) != (key in off_main), f"{key}: {count} launches on the main path"
     phase("4 main path", t)

@@ -203,6 +203,62 @@ def test_msm_partials_and_pdouble(dev):
     assert g1_vec.point_from_device(msm_pippenger.msm_pippenger(pts, sc, c=8)) == host
 
 
+def _tree_input(dev, shape, seed):
+    """(24, *shape) x3 canonical Fq residues (the tree's formula is defined
+    on any), with the identity (0 : 1 : 0) in lane 1 of every set and lane
+    n/2 equal to lane 0 (the doubling case at the first level)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(3):
+        a = rng.integers(0, 1 << 16, size=(24,) + shape, dtype=np.int64)
+        a[-1] %= limbs.FQ.modulus >> (16 * 23)
+        out.append(torch.from_numpy(a.astype(np.int32)).to(dev))
+    n = shape[-1]
+    if n >= 4:
+        for c, v in zip(out, g1_vec.pidentity((), dev)):
+            c[..., 1] = v.reshape((24,) + (1,) * (c.dim() - 2))
+        for c in out:
+            c[..., n // 2] = c[..., 0]
+    return tuple(out)
+
+
+@pytest.mark.parametrize("shape", [(3, 1), (5, 2), (3, 2, 8), (1024,), (2, 2048), (4096,)],
+                         ids=["n1", "n2", "n8", "n1024", "n2048", "n4096"])
+def test_g1_tree_one_launch(dev, shape):
+    """bpt_g1_tree against tree_reduce_plain, limb for limb: one launch a
+    call, no elementwise addition launch."""
+    p = _tree_input(dev, shape, 60 + shape[-1])
+    before = (g1_vec.tree_reduce.launches, g1_vec.padd.launches)
+    got = g1_vec.tree_reduce(p)
+    assert (g1_vec.tree_reduce.launches, g1_vec.padd.launches) == (before[0] + 1, before[1])
+    want = g1_vec.tree_reduce_plain(p)
+    assert all(g.shape == (24,) + shape[:-1] and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_g1_tree_strided_view_and_refusals(dev):
+    """The fixed-base MSM's view of its partials, (24, P, W, full, 2048)
+    over the first full chunks of (24, P, W, G), read in place; a view
+    whose batch axes do not fold, copied once; the refusals."""
+    part = _tree_input(dev, (3, 2, 4 * 2048 + 1), 70)
+    whole = tuple(c[..., : 4 * 2048].reshape(24, 3, 2, 4, 2048) for c in part)
+    assert g1_vec.tree_layout(whole[0]) is not None
+    crossed = tuple(c.transpose(1, 2)[..., :32].reshape(24, 2, 3, 4, 8) for c in part)
+    assert g1_vec.tree_layout(crossed[0]) is None
+    for p in (whole, crossed):
+        before = g1_vec.tree_reduce.launches
+        got = g1_vec.tree_reduce(p)
+        assert g1_vec.tree_reduce.launches == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, g1_vec.tree_reduce_plain(p)))
+    with pytest.raises(ValueError, match="power of two"):
+        g1_vec.tree_reduce(tuple(c[..., :6] for c in part))
+    with pytest.raises(TypeError):
+        g1_vec.tree_reduce(tuple(c.long() for c in whole))
+    with pytest.raises(ValueError):
+        g1_vec.tree_reduce((whole[0].cpu(),) + whole[1:])
+    with pytest.raises(ValueError):
+        g1_vec.tree_reduce(tuple(c[:12] for c in whole))
+
+
 @pytest.mark.parametrize("spec", [limbs.FR, limbs.FQ], ids=["fr", "fq"])
 def test_field_pow_one_launch(dev, spec):
     """a^e in the kernel against square-and-multiply over the plain product:
