@@ -6,11 +6,10 @@
 // pallas_kernels.py:138-156) and g1_vec.tree_reduce (ops/g1_vec.py:298),
 // which the fixed-base Pallas MSM ran in XLA after its kernel, and
 // msm._combine_partials (ops/msm.py:101-116) across chunks: bpt_g1_tree. The
-// XLA elementwise g1_vec.padd / g1_vec.pdouble (ops/g1_vec.py:132, :165)
-// inside msm_pippenger (ops/msm_pippenger.py:58, :76, :116, :122), whose
-// additions run over all n sorted points (the segmented scan) and over the
-// 2^c buckets (suffix sums), and whose doublings run on one lane, the running
-// total shifted by c bits per window: bpt_g1_padd, bpt_g1_pdouble.
+// XLA elementwise g1_vec.padd / g1_vec.pdouble (ops/g1_vec.py:132, :165):
+// bpt_g1_padd, bpt_g1_pdouble. They were the steps of the Pippenger scans
+// until that MSM got kernels of its own (csrc/pippenger.cu); the doubling
+// runs the SRS's chain of multiples.
 //
 // Bound on this card: the 12 Fq Montgomery products per addition (8 per
 // doubling) on the integer multiply-add pipe; an addition reads 6 and

@@ -11,8 +11,9 @@ compute the same canonical coordinates as the JAX package and as the
 device functions of ``csrc/g1.cuh``.
 
 Kernels (csrc/g1.cu): ``bpt_g1_tree``, every set of a batch summed in one
-launch (``tree_reduce``); ``bpt_g1_padd``, the step of the Pippenger scans;
-``bpt_g1_pdouble``, the Pippenger window shift and the SRS's doubling chain.
+launch (``tree_reduce``); ``bpt_g1_padd``, the elementwise addition (the
+JAX ``g1_vec.padd``; no prove runs it since the Pippenger MSM has kernels of
+its own, csrc/pippenger.cu); ``bpt_g1_pdouble``, the SRS's doubling chain.
 """
 from __future__ import annotations
 

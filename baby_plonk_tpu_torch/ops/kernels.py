@@ -36,7 +36,7 @@ from . import field_asm
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("field.cu", "ntt.cu", "g1.cu", "msm.cu", "msm_fixed.cu", "srs.cu")
+SOURCES = ("field.cu", "ntt.cu", "g1.cu", "msm.cu", "msm_fixed.cu", "srs.cu", "pippenger.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -63,6 +63,7 @@ _SIGNATURES = {
     "bpt_msm_fixed": [_P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
     "bpt_msm_join": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
     "bpt_powers_of_tau": [_P, _P, _I, _P, _P, _P, _P],
+    "bpt_msm_pippenger": [_P] * 3 + [_I, _P, _P, ctypes.c_int] + [_I] * 4 + [_P, _I] + [_P] * 4,
 }
 
 _lib = None
@@ -142,6 +143,8 @@ def library():
             fn.restype = ctypes.c_int
         lib.bpt_ntt_sub_smem.argtypes = [_I, _I]
         lib.bpt_ntt_sub_smem.restype = _I
+        lib.bpt_msm_pippenger_scratch.argtypes = [_I, ctypes.c_int] + [_I] * 4
+        lib.bpt_msm_pippenger_scratch.restype = _I
         _lib = lib
     return _lib
 

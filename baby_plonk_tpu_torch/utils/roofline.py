@@ -94,3 +94,21 @@ def tree_work(n, sets):
     additions, which no count of bytes or multiply-adds shows: chip_smoke
     states it beside this bound, from the time of one addition on one lane."""
     return 3 * FQ_BYTES * sets * (n + 1), FQ_MUL * ADD_MULS * sets * (n - 1)
+
+
+def pippenger_work(ds, c):
+    """(bytes, multiply-adds) of one variable-base Pippenger MSM
+    (``msm_pippenger.msm_pippenger``) from this run's sorted digits ``ds``
+    (nwin, n): the points read once a window, the scalars once, the sum
+    written once; an addition for each point of a bucket after its first,
+    two for each bucket up to a window's top digit (the running sums), and
+    c doublings and an addition for each window below the top (Horner).
+    The Horner chain is also its latency floor, which no count of bytes or
+    multiply-adds shows: chip_smoke states it beside this bound, from the
+    one-lane times of a doubling and an addition."""
+    nwin, n = ds.shape
+    nz = ds != 0
+    buckets = int(nz[:, 0].sum()) + int(((ds[:, 1:] != ds[:, :-1]) & nz[:, 1:]).sum())
+    adds = int(nz.sum()) - buckets + 2 * int(ds.max(dim=1).values.sum()) + (nwin - 1)
+    return (3 * FQ_BYTES * n * nwin + FR_BYTES * n + 3 * FQ_BYTES,
+            FQ_MUL * ADD_MULS * adds + DOUBLE_MADS * c * (nwin - 1))

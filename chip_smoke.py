@@ -29,7 +29,12 @@ Phases, each printed with its seconds:
      beside it the wrapper's host time a call (host_us, host clock around the
      same loop, no synchronise inside). The Fr and Fq product, square and
      power on edge operands; the fixed-base, bit-serial and Pippenger MSMs
-     also against the exact host MSM. The two point-MSM kernels are exact at
+     also against the exact host MSM. The Pippenger MSM (one
+     bpt_msm_pippenger call) against its plain version at the prove's 65,538
+     points (c = 14), at 2^14 points and on skewed scalars (all equal; a run
+     of 1000 equal scalars across many chunks), with its latency floor (the
+     Horner chain: c (nwin - 1) one-lane doublings and nwin - 1 additions)
+     beside the bound. The two point-MSM kernels are exact at
      one 2^14-point chunk and at a small ragged shape (their plain versions
      take seconds a chunk) and timed at the shapes the proves give them;
      round 3's combination also in the mesh's form, z(w x) from a row of
@@ -57,7 +62,9 @@ Phases, each printed with its seconds:
      commit_fixed_base=False, a prove + verify with msm_algorithm
      "bitserial" and one with "pippenger", fixed blinding; proof bytes equal
      to each other and to the fixed-base proof of the same blinding; the
-     bit-serial kernel must have launched and the Horner kernel must not
+     bit-serial prove launches msm_partials once a commit (9), the Pippenger
+     prove bpt_msm_pippenger once a commit (9) and g1_padd, g1_pdouble and
+     msm_partials never; neither launches the Horner kernel
   7. setup cache: on a fresh temporary cache directory,
      Setup.generate_srs_device(2^16 + 6, cache=True) twice (writes, then
      reads); the points read back equal phase 4's, and a prove from them
@@ -239,8 +246,8 @@ def check_kernels(dev, results):
                                           prover_kernels, srs)
     # the peaks and work counts behind every bound (shared with the bench)
     from baby_plonk_tpu_torch.utils.roofline import (ADD_MULS, DOUBLE_MADS, FQ_BYTES, FQ_MUL, FQ_SQR, FR_BYTES,
-                                                     FR_MUL, FR_SQR, bound, horner_work, powers_of_tau_work,
-                                                     tables_work, tree_work)
+                                                     FR_MUL, FR_SQR, bound, horner_work, pippenger_work,
+                                                     powers_of_tau_work, tables_work, tree_work)
 
     rng = np.random.default_rng(SEED)
     FR, FQ = limbs.FR, limbs.FQ
@@ -633,14 +640,16 @@ def check_kernels(dev, results):
            (timed_w[3, w3][1], host_us(lambda: msm_fixed.msm_join(win, 16), 3)), join_plain_ms, 6 * FQ_BYTES * 3 * w3,
            3 * (w3 - 1) * (DOUBLE_MADS * s_w + FQ_MUL * ADD_MULS),
            shape=f"3 sets, {w3} windows of {s_w} bits", plain_shape="3 sets, 16 windows of 16 bits")
-    # -- the addition on one lane of shape (24,), the Pippenger running total:
-    # its device time is the latency of one addition, the depth floor's unit
+    # -- the addition on one lane of shape (24,): its device time is the
+    # latency of one addition, the depth floor's unit. No prove launches the
+    # elementwise addition since the Pippenger MSM has its own kernels: its
+    # rows are off every path
     one_a, one_b = (tuple(c[:, i].contiguous() for c in pts) for i in (1, 2))
     one64 = tuple(tuple(c.to(torch.int64) for c in q) for q in (one_a, one_b))
     add_ms, add_us = timed(lambda: g1_vec.padd(one_a, one_b), 100)
     record("g1_padd", "baby_plonk_tpu_torch/csrc/g1.cu", "baby_plonk_tpu/ops/g1_vec.py:132", "g1_vec.padd",
            max_abs_err(g1_vec.padd(one_a, one_b), g1_vec.padd_plain(*one64)), (add_ms, add_us),
-           cuda_ms(lambda: g1_vec.padd_plain(*one64), 5), 9 * FQ_BYTES, FQ_MUL * ADD_MULS, run="pippenger",
+           cuda_ms(lambda: g1_vec.padd_plain(*one64), 5), 9 * FQ_BYTES, FQ_MUL * ADD_MULS, run="off",
            shape="one lane (24,)")
 
     # -- the group tree at the fixed-base commit's shapes: the Horner partials
@@ -674,8 +683,8 @@ def check_kernels(dev, results):
               f"{levels * add_ms:.4f} ms, share of the larger floor {floor_ms / ms:.2f}; plan (B, sets a block) "
               f"{plan}", flush=True)
     del tabs, small_tabs, part, whole, tail, combine_in
-    # the other shapes the Pippenger path gives the addition: the scan over
-    # the n + 2 = 65,538 sorted points of a commit and the 2^14 buckets of a
+    # the shapes the Pippenger scans gave the addition before the Pippenger
+    # kernels: the 65,538 sorted points of a commit and the 2^14 buckets of a
     # window
     n_scan = (1 << 16) + 2
     for lanes, label in ((n_scan, "65538 lanes"), (chunk, "2^14 lanes")):
@@ -687,7 +696,7 @@ def check_kernels(dev, results):
                max_abs_err(g1_vec.padd(pa, pb), g1_vec.padd_plain(pa64, pb64)),
                timed(lambda: g1_vec.padd(pa, pb), 20),
                cuda_ms(lambda: g1_vec.padd_plain(pa64, pb64), 2),
-               9 * FQ_BYTES * lanes, FQ_MUL * ADD_MULS * lanes, run="pippenger")
+               9 * FQ_BYTES * lanes, FQ_MUL * ADD_MULS * lanes, run="off")
     pa = pb = pa64 = pb64 = None
     # one MSM at 2^10 against the exact host oracle
     m = 1 << 10
@@ -745,17 +754,76 @@ def check_kernels(dev, results):
            shape=f"65538 points, tile {tile}, one launch", ms_one_chunk=chunk_ms,
            bound_ms_one_chunk=bound(*partials_work(sc1, chunk))[0],
            plain_shape="one 2^14-point chunk")
-    del path_pts, srs_pts
-    # the doubling's shape on every path: one point, the Pippenger running
-    # total (24,), doubled c times per window, and the doubling chain of the
-    # SRS's table of multiples (24, 1), 255 launches on the main path
+    # the doubling's shape: one point, the doubling chain of the SRS's table
+    # of multiples (24, 1), 255 launches on the main path
     pt1 = tuple(c[:, 1].contiguous() for c in pts)
     pt64 = tuple(c.to(torch.int64) for c in pt1)
     assert pt1[0].shape == (24,)
+    dbl_ms, dbl_us = timed(lambda: g1_vec.pdouble(pt1), 100)
     record("g1_pdouble", "baby_plonk_tpu_torch/csrc/g1.cu", "baby_plonk_tpu/ops/g1_vec.py:165",
            "g1_vec.pdouble", max_abs_err(g1_vec.pdouble(pt1), g1_vec.pdouble_plain(pt64)),
-           timed(lambda: g1_vec.pdouble(pt1), 100), cuda_ms(lambda: g1_vec.pdouble_plain(pt64), 5),
+           (dbl_ms, dbl_us), cuda_ms(lambda: g1_vec.pdouble_plain(pt64), 5),
            6 * FQ_BYTES, DOUBLE_MADS)
+
+    # -- the Pippenger MSM: one bpt_msm_pippenger call (a few launches) against
+    # its plain version under the same plan, limb for limb, at the prove's
+    # 65,538 points (c = 14), at 2^14 points (c = 12) and on skewed scalars:
+    # all equal (one bucket a window holds every point) and a run of 1000
+    # equal scalars across many chunks. Device time by CUDA events (the call
+    # takes milliseconds; the sort, glue, is inside it), each kernel's by
+    # torch.profiler. Beside the bound, the latency floor: the Horner chain,
+    # c (nwin - 1) dependent doublings and nwin - 1 additions on one thread,
+    # at the one-lane g1_pdouble and g1_padd rows' device times
+    PIP_CU = "baby_plonk_tpu_torch/csrc/pippenger.cu"
+    skew_all = path_sc[:, :1].expand(16, n_path).contiguous()
+    skew_run = path_sc.clone()
+    skew_run[:, 5000:6000] = path_sc[:, 5000:5001]
+    pip = {}
+    for label, p, s in (("65538", path_pts, path_sc), ("2^14", pts, sc1),
+                        ("all equal", path_pts, skew_all), ("run of 1000", path_pts, skew_run)):
+        n_p = s.shape[-1]
+        c = msm_pippenger.window_c(n_p)
+        plan = msm_pippenger.make_plan(n_p, c, sms)
+        before = msm_pippenger.msm_pippenger.launches
+        got = msm_pippenger.msm_pippenger(p, s)
+        assert msm_pippenger.msm_pippenger.launches == before + 1, "the Pippenger MSM is one bpt_msm_pippenger call"
+        want, plain_ms = once_ms(lambda: msm_pippenger.msm_pippenger_plain(p, s, c, plan))
+        err = max_abs_err(got, want)
+        assert err == 0, f"bpt_msm_pippenger differs from its plain version ({label}, max |err| {err})"
+        nwin = msm_pippenger.windows(c)
+        ds = msm_pippenger.sorted_digits(s, c)[0]
+        pip[label] = {"err": err, "plain_ms": plain_ms, "plan": plan, "work": pippenger_work(ds, c),
+                      "ms": cuda_ms(lambda: msm_pippenger.msm_pippenger(p, s), 5),
+                      "floor_ms": c * (nwin - 1) * dbl_ms + (nwin - 1) * add_ms,
+                      "levels": len(msm_pippenger.levels(n_p, *plan[:2]))}
+        print(f"  msm_pippenger, {label} points/scalars, c = {c}, plan (K, JOIN_K, L, BS) {plan}, "
+              f"{pip[label]['levels']} walk levels: exact, {pip[label]['ms']:.4f} ms (events), plain "
+              f"{plain_ms:.1f} ms, bound {bound(*pip[label]['work'])[0]:.4f} ms, latency floor "
+              f"{pip[label]['floor_ms']:.4f} ms", flush=True)
+    # other window widths (the default is the reference's c = 14) and plans at
+    # the prove's 65,538 points: the same point, and each call's time
+    want_pt = g1_vec.point_from_device(msm_pippenger.msm_pippenger(path_pts, path_sc))
+    alt = {}
+    for c, plan in ((12, None), (13, None), (15, None), (16, None), (14, (19, 8, 16, 128)), (14, (74, 8, 16, 128)),
+                    (14, (37, 4, 16, 128)), (14, (37, 8, 8, 128)), (14, (37, 8, 32, 128))):
+        key = f"c = {c}" + ("" if plan is None else f", plan {plan}")
+        assert g1_vec.point_from_device(msm_pippenger.msm_pippenger(path_pts, path_sc, c, plan)) == want_pt, key
+        alt[key] = cuda_ms(lambda: msm_pippenger.msm_pippenger(path_pts, path_sc, c, plan), 5)
+    print(f"  msm_pippenger, 65538 points, other widths and plans (same point; ms, events): {json.dumps(alt)}",
+          flush=True)
+    names = ("repack_kernel", "walk_kernel", "segment_kernel", "window_kernel", "horner_kernel")
+    by_kernel = kernel_ms(lambda: msm_pippenger.msm_pippenger(path_pts, path_sc), names)
+    print(f"  msm_pippenger, 65538 points, device ms by kernel: {json.dumps(by_kernel)}", flush=True)
+    main_pip = pip["65538"]
+    record("msm_pippenger", PIP_CU, "baby_plonk_tpu/ops/msm_pippenger.py:45", "msm_pippenger.msm_pippenger",
+           main_pip["err"], timed_events(lambda: msm_pippenger.msm_pippenger(path_pts, path_sc), 5),
+           main_pip["plain_ms"], *main_pip["work"], run="pippenger",
+           shape="65538 points, c = 14, one call", plan=main_pip["plan"], levels=main_pip["levels"],
+           latency_floor_ms=main_pip["floor_ms"], kernel_ms=by_kernel, other_widths_and_plans_ms=alt,
+           **{f"ms_{k.replace(' ', '_').replace('^', '_')}": v["ms"] for k, v in pip.items() if k != "65538"},
+           **{f"bound_ms_{k.replace(' ', '_').replace('^', '_')}": bound(*v["work"])[0]
+              for k, v in pip.items() if k != "65538"})
+    del path_pts, srs_pts, skew_all, skew_run
     # both variable-base algorithms at 2^10 against the exact host oracle, and
     # one 2^14-point Pippenger MSM timed beside the bit-serial chunk
     want = msm_host.msm(host_pts, host_sc)
@@ -888,7 +956,7 @@ class Count:
 
 def kernel_counters():
     """Every wrapper of the paths, by name: its ``launches`` count."""
-    from baby_plonk_tpu_torch.ops import g1_vec, kernels, limbs, msm, msm_fixed, prover_kernels, srs
+    from baby_plonk_tpu_torch.ops import g1_vec, kernels, limbs, msm, msm_fixed, msm_pippenger, prover_kernels, srs
 
     return {
         "limbs.mont_mul": limbs.mont_mul, "limbs.add_mod": limbs.add_mod,
@@ -906,6 +974,7 @@ def kernel_counters():
         "msm_fixed.msm_join": msm_fixed.msm_join,
         "srs.powers_of_tau": srs.powers_of_tau,
         "msm.msm_partials": msm.msm_partials, "g1_vec.pdouble": g1_vec.pdouble,
+        "msm_pippenger.msm_pippenger": msm_pippenger.msm_pippenger,
     }
 
 
@@ -1088,8 +1157,11 @@ def variable_base_path(dev, counters, circuit):
         config.set_config(prev)
     assert run_counts["bitserial"]["msm.msm_partials"] == 9, (
         "the bit-serial prove is 9 commits, one msm_partials launch each")
-    assert run_counts["pippenger"]["g1_vec.pdouble"] > 0, "g1_pdouble did not launch in the Pippenger prove"
-    assert run_counts["pippenger"]["g1_vec.padd"] > 0, "g1_padd did not launch in the Pippenger prove"
+    assert run_counts["pippenger"]["msm_pippenger.msm_pippenger"] == 9, (
+        "the Pippenger prove is 9 commits, one bpt_msm_pippenger call each")
+    assert run_counts["pippenger"]["g1_vec.padd"] == 0, "g1_padd launched in the Pippenger prove"
+    assert run_counts["pippenger"]["g1_vec.pdouble"] == 0, "g1_pdouble launched in the Pippenger prove"
+    assert run_counts["bitserial"]["msm_pippenger.msm_pippenger"] == 0, "the Pippenger kernels launched in the bit-serial prove"
     assert run_counts["bitserial"]["g1_vec.padd"] == 0, "g1_padd launched in the bit-serial prove"
     assert run_counts["pippenger"]["msm.msm_partials"] == 0, "the bit-serial kernel launched in the Pippenger prove"
     assert proofs["bitserial"] == proofs["pippenger"] == proofs["fixed"], (
@@ -1454,7 +1526,7 @@ def main():
 
     t = time.perf_counter()
     kernels.library()
-    for source in ("field.cu", "ntt.cu", "g1.cu", "msm.cu", "msm_fixed.cu", "srs.cu"):
+    for source in ("field.cu", "ntt.cu", "g1.cu", "msm.cu", "msm_fixed.cu", "srs.cu", "pippenger.cu"):
         for line in kernels.resource_usage(source).splitlines():
             if "Compiling entry" in line or "stack frame" in line or "Used" in line:
                 print(f"  ptxas, {source}: {line.strip()}", flush=True)
@@ -1488,8 +1560,10 @@ def main():
     #: wrappers with no launch on the main path: the bit-serial MSM, the
     #: mesh's form of round 3, the subtraction (the same kernel as the
     #: addition), which the fused round-3 expression took off every prove,
-    #: and the elementwise point addition, which only the Pippenger MSM runs
-    off_main = ("msm.msm_partials", "prover_kernels.round3_combine (zw)", "limbs.sub_mod", "g1_vec.padd")
+    #: the elementwise point addition, which no prove runs, and the Pippenger
+    #: MSM (phase 6)
+    off_main = ("msm.msm_partials", "prover_kernels.round3_combine (zw)", "limbs.sub_mod", "g1_vec.padd",
+                "msm_pippenger.msm_pippenger")
     t = time.perf_counter()
     run_counts, warm_counts, circuit, single_s = main_path(dev, 1 << 16, counters)
     print(f"  launches, whole run: {json.dumps(run_counts)}", flush=True)

@@ -203,6 +203,46 @@ def test_msm_partials_and_pdouble(dev):
     assert g1_vec.point_from_device(msm_pippenger.msm_pippenger(pts, sc, c=8)) == host
 
 
+#: (scalars, c, plan (K, JOIN_K, L, BS)) of the Pippenger card test: small
+#: plans split the chunks, join levels, segments and trees at n = 96; None
+#: is the card's own plan
+PIPPENGER_CASES = [
+    ("random", 8, (4, 4, 2, 8)),
+    ("random", 6, (5, 8, 4, 4)),
+    ("all_equal", 8, (4, 4, 4, 16)),
+    ("run_of_20", 8, (4, 4, 1, 128)),
+    ("random", None, None),
+    ("all_equal", None, None),
+]
+
+
+@pytest.mark.parametrize("scalars, c, plan", PIPPENGER_CASES,
+                         ids=["c8", "c6", "all_equal", "run_of_20", "card_plan", "all_equal_card_plan"])
+def test_msm_pippenger_kernel_matches_plain(dev, scalars, c, plan):
+    """bpt_msm_pippenger against msm_pippenger_plain, limb for limb, one call
+    a MSM; and the exact host MSM. Skewed: every scalar equal (one bucket a
+    window holds every point), a run of 20 equal scalars across chunks."""
+    from baby_plonk_tpu_torch.curves import msm_host
+
+    n = 96
+    pts = srs.powers_of_tau_device(n, 78, dev)
+    ints = field_ints(7, fr.Q, n)
+    if scalars == "all_equal":
+        ints = [ints[0]] * n
+    elif scalars == "run_of_20":
+        ints[30:50] = [ints[30]] * 20
+    sc = limbs.FR.pack_raw(ints, dev)
+    cc = msm_pippenger.window_c(n) if c is None else c
+    card_plan = plan or msm_pippenger.make_plan(n, cc, torch.cuda.get_device_properties(dev).multi_processor_count)
+    before = msm_pippenger.msm_pippenger.launches
+    got = msm_pippenger.msm_pippenger(pts, sc, c=c, plan=plan)
+    torch.cuda.synchronize()
+    assert msm_pippenger.msm_pippenger.launches == before + 1
+    want = msm_pippenger.msm_pippenger_plain(pts, sc, cc, card_plan)
+    assert all(torch.equal(g.long(), w) for g, w in zip(got, want))
+    assert g1_vec.point_from_device(got) == msm_host.msm(g1_vec.points_from_device(pts), ints)
+
+
 def _tree_input(dev, shape, seed):
     """(24, *shape) x3 canonical Fq residues (the tree's formula is defined
     on any), with the identity (0 : 1 : 0) in lane 1 of every set and lane
