@@ -21,8 +21,10 @@ prove sizes' NTT plans: first minus second transform of each size and
 direction), tables_build_s (the fixed-base tables of the prove's SRS),
 srs_device_s, srs_load_s, srs_bytes (the MSM's SRS computed and written to
 its cache file, read back, the file's size), round_ms (median of each
-``utils.metrics`` span over the warm proves), device_busy_share (device time
-of a warm prove under torch.profiler over the median warm prove),
+``utils.metrics`` span over the warm proves), peak_mem_bytes (the most device
+memory torch held allocated from the cold prove through the last warm one,
+``torch.cuda.max_memory_allocated``), device_busy_share (device time of a
+warm prove under torch.profiler over the median warm prove),
 build_s (the CUDA library's build and load), device (the card's name and
 power limit from nvidia-smi); with BPT_BENCH_BITSERIAL also
 msm_variable_points_per_s and msm_variable_algorithm.
@@ -31,7 +33,9 @@ Environment:
   BPT_BENCH_MSM_LOG2    14  fixed-base MSM size (SRS of tau = 0xBE9C4)
   BPT_BENCH_NTT_LOG2    20  NTT size
   BPT_BENCH_HOST_LOG2   10  host baseline and exactness anchor size
-  BPT_BENCH_PROVE_LOG2  16  prove size (SRS of tau = 0xDEADBEEF, cached)
+  BPT_BENCH_PROVE_LOG2  16  prove size (SRS of tau = 0xDEADBEEF, cached);
+                            20 is the reference's 2^20-gate configuration
+                            (a few minutes, most of it host Python)
   BPT_BENCH_ITERS       10  runs each rate is the median of (warm proves:
                             at least 9)
   BPT_BENCH_BITSERIAL       set: also the variable-base MSM at the same size
@@ -142,8 +146,9 @@ def random_scalars(rng, n: int, device) -> torch.Tensor:
 def metric_line(*, device: str, build_s: float, msm_log2: int, msm_s: float, msm_bound_s: float,
                 host_log2: int, host_s: float, ntt_log2: int, ntt_s: float, srs_device_s: float,
                 srs_load_s: float, srs_bytes: int, prove_log2: int, plan_s: float, tables_build_s: float,
-                prove_cold_s: float, prove_warm_s: list, round_ms: dict, verifier_preprocess_s: float,
-                verify_s: float, device_ms: float, variable: tuple | None = None) -> dict:
+                prove_cold_s: float, prove_warm_s: list, round_ms: dict, peak_mem_bytes: int,
+                verifier_preprocess_s: float, verify_s: float, device_ms: float,
+                variable: tuple | None = None) -> dict:
     """The bench's line from its timings (seconds unless named otherwise):
     ``prove_warm_s`` the warm proves, ``device_ms`` the profiled warm
     prove's device time, ``variable`` (algorithm, seconds) of the
@@ -172,6 +177,7 @@ def metric_line(*, device: str, build_s: float, msm_log2: int, msm_s: float, msm
         "srs_load_s": srs_load_s,
         "srs_bytes": srs_bytes,
         "round_ms": round_ms,
+        "peak_mem_bytes": peak_mem_bytes,
         "device_busy_share": device_ms / 1e3 / warm,
         "build_s": build_s,
         "device": device,
@@ -291,6 +297,7 @@ def prove_section(dev, prove_log2: int, iters: int) -> dict:
         f"{out['tables_build_s']:.4f} s")
 
     engine = TorchEngine(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     out["prove_cold_s"], _ = seconds(lambda: Prover(setup, program, engine).prove(witness))
     warm, spans = [], {k: [] for k in SPANS}
     for _ in range(max(9, iters)):
@@ -301,9 +308,11 @@ def prove_section(dev, prove_log2: int, iters: int) -> dict:
             spans[k].append(get_metrics().durations.get(k, 0.0) * 1e3)
     out["prove_warm_s"] = warm
     out["round_ms"] = {k: statistics.median(v) for k, v in spans.items()}
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     log(f"prove 2^{prove_log2}: cold {out['prove_cold_s']:.4f} s; warm median {statistics.median(warm):.4f} s of "
         f"{len(warm)} ({min(warm):.4f}-{max(warm):.4f}); span medians, ms: "
-        + " ".join(f"{k}={v:.1f}" for k, v in out["round_ms"].items()))
+        + " ".join(f"{k}={v:.1f}" for k, v in out["round_ms"].items())
+        + f"; peak device memory {out['peak_mem_bytes']} bytes")
 
     out["verifier_preprocess_s"], verifier = seconds(lambda: Verifier(setup, program, proof, engine=engine))
     out["verify_s"], ok = seconds(lambda: verifier.verify(public))
@@ -352,6 +361,7 @@ def run(env=os.environ) -> dict:
         srs_device_s=m["srs_device_s"], srs_load_s=m["srs_load_s"], srs_bytes=m["srs_bytes"],
         prove_log2=prove_log2, plan_s=p["plan_s"], tables_build_s=p["tables_build_s"],
         prove_cold_s=p["prove_cold_s"], prove_warm_s=p["prove_warm_s"], round_ms=p["round_ms"],
+        peak_mem_bytes=p["peak_mem_bytes"],
         verifier_preprocess_s=p["verifier_preprocess_s"], verify_s=p["verify_s"], device_ms=p["device_ms"],
         variable=m.get("variable"))
 

@@ -258,13 +258,40 @@ class DPoly:
         return f"DPoly({self.basis.name}, n={self.vals.shape[-1]}, {self.device})"
 
 
+#: round 4 evaluates in position chunks of this width (a power of two; the
+#: JAX package's BPT_EVAL_CHUNK default): a (16, k, 2^19) stack at most,
+#: where padding to the next power of two would stack (16, k, 2^21) at 2^20
+#: gates
+EVAL_CHUNK = 1 << 19
+
+
+def slice_pad(a: torch.Tensor, lo: int, width: int) -> torch.Tensor:
+    """a[..., lo:lo + width], zero-padded on the right to ``width``."""
+    return pad_to(a[..., lo : lo + width], width)
+
+
 def eval_many(polys: list[DPoly], x: int) -> list[int]:
-    """Evaluate k monomial DPolys at one point: one stacked multiply and one
-    halving sum, one host transfer."""
+    """Evaluate k monomial DPolys at one point: a stacked multiply and a
+    halving sum a position chunk, one host transfer.
+
+    The chunks are W = min(EVAL_CHUNK, the next power of two) positions
+    wide, over one power table of width W: p(x) = sum_c x^(c W) p_c(x) with
+    p_c the c-th block of W coefficients. ``eval_many.chunks`` counts the
+    chunks."""
     assert all(p.basis == Basis.MONOMIAL for p in polys)
     if not polys:
         return []
-    size = _next_pow2(max(len(p) for p in polys))
-    stacked = torch.stack([pad_to(p.vals, size) for p in polys], dim=1)  # (16, k, size)
-    pw = pow_table(scalar(x, polys[0].device), size)
-    return FR.unpack_mont(reduce_add(_mul(stacked, pw[:, None, :])))
+    dev = polys[0].device
+    L = max(len(p) for p in polys)
+    W = min(EVAL_CHUNK, _next_pow2(L))
+    pw = pow_table(scalar(x, dev), W)[:, None, :]
+    acc = None
+    for lo in range(0, L, W):
+        chunk = torch.stack([slice_pad(p.vals, lo, W) for p in polys], dim=1)  # (16, k, W)
+        part = reduce_add(_mul(chunk, pw))
+        acc = part if lo == 0 else _add(acc, _mul(part, scalar(pow(x, lo, Q), dev)[:, None, :]))
+        eval_many.chunks += 1
+    return FR.unpack_mont(acc)
+
+
+eval_many.chunks = 0

@@ -342,7 +342,10 @@ def ntt_sub_4step(a: torch.Tensor, inverse: bool, sub_max: int | None = None,
     transforms, ``ntt_sub.launches`` the kernel launches: 2 a transform. A
     factor above ``sub_max`` (default SUB_MAX_M) recurses through the
     composition of separate passes, which is also the CPU's path and, with
-    ``plain``, the reference on the card."""
+    ``plain``, the reference on the card; ``composed`` counts the transforms
+    on the card that took it (2^22 = 2048 x 2048: counted once there and
+    once for each of its two inner transforms, so 3 transforms and 4
+    kernel launches)."""
     from . import ntt
 
     sub_max = SUB_MAX_M if sub_max is None else sub_max
@@ -354,6 +357,7 @@ def ntt_sub_4step(a: torch.Tensor, inverse: bool, sub_max: int | None = None,
         out = _four_step_composed(a, inverse, sub_max, plain, scaled)
         if not plain and not on_cpu(a):
             ntt_sub_4step.launches += 1
+            ntt_sub_4step.composed += 1
         return out
     check_cuda(a)
     a = a.contiguous()
@@ -368,3 +372,4 @@ def ntt_sub_4step(a: torch.Tensor, inverse: bool, sub_max: int | None = None,
 
 
 ntt_sub_4step.launches = 0
+ntt_sub_4step.composed = 0

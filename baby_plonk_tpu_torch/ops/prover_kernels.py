@@ -10,10 +10,12 @@ quotient t of degree 3n+5. This is the JAX package's split path (:238-282):
 the nine proof-independent rows are transformed once per proving key and
 cached on it, z(wx)'s evaluations are z's shifted by 4 positions. The
 fused single-kernel path computes the same function and has no separate
-counterpart.
+counterpart. The constants and the nine rows are cached only while they
+fit a share of the device's memory (the JAX package's byte budgets
+BPT_R3_CONSTS_BYTES and BPT_R3_ROWCACHE_BYTES, :176-182, :242-256).
 
 Round 5 (``linear_combine_device``, JAX :324): sum_i c_i p_i + const as
-one stacked multiply and a halving sum.
+a stacked multiply and a halving sum a position chunk (JAX :324-350).
 
 Fused round expressions (csrc/field.cu): what ``jax.jit`` compiled into one
 executable in the reference is one kernel here, every intermediate in
@@ -25,15 +27,16 @@ unfused expressions over ``limbs``.
 """
 from __future__ import annotations
 
-import functools
+import os
 
 import torch
 
 from ..fields import fr
 from ..protocol.poly import Basis
+from ..utils.roofline import FR_BYTES
 
 from . import kernels, limbs
-from .dpoly import DPoly, _debug_asserts, pad_to, pow_table, scalar
+from .dpoly import DPoly, _debug_asserts, pad_to, pow_table, scalar, slice_pad
 from .limbs import FR
 from .ntt import ntt_device
 
@@ -161,11 +164,37 @@ round3_combine.launches = 0
 round3_combine.launches_zw = 0
 
 
-@functools.lru_cache(maxsize=4)
+#: round 3's four (16, m) constant tables and its nine coset rows are
+#: cached only while they fit these shares of the device's memory; below
+#: them every prove builds them anew and frees them when round 3 returns.
+#: At 2^20 gates the tables take 1 GiB and the rows 2.25 GiB, so on an 80
+#: GB card both caches hold there and at 2^21 gates. With both held the
+#: 2^20-gate prove peaks at 20.96 GiB allocated, in round 3 of the cold
+#: prove, 1.1-1.2 GiB of it left by earlier phases (chip_smoke.py phase 11
+#: on an NVIDIA H100 80GB HBM3 at 700 W)
+R3_CONSTS_SHARE = 1 / 16
+R3_ROWCACHE_SHARE = 3 / 32
+
+#: round 3's constants by (m, device), kept while they fit (``_round3_consts``)
+_R3_CONSTS: dict = {}
+
+
+def _memory_bytes(device: str) -> int:
+    """The device's memory: the card's, or the host's for the CPU."""
+    d = torch.device(device)
+    if d.type == "cuda":
+        return torch.cuda.get_device_properties(d).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
 def _round3_consts(m: int, device: str):
     """(zh_inv, gpow, ginvpow, dpow), each (16, m): 1/Z_H on the coset
     (Z_H(g w^j) = g^n w4^j - 1 with w4 = w^n of order 4), g^j, g^-j and the
-    domain points g w^j."""
+    domain points g w^j. Cached only while the four tables, 4 m 64 bytes,
+    fit R3_CONSTS_SHARE of the device's memory."""
+    c = _R3_CONSTS.get((m, device))
+    if c is not None:
+        return c
     n = m // 4
     g = fr.GENERATOR
     w = fr.root_of_unity(m)
@@ -175,7 +204,10 @@ def _round3_consts(m: int, device: str):
     gpow = pow_table(scalar(g, device), m)
     ginvpow = pow_table(scalar(pow(g, Q - 2, Q), device), m)
     dpow = _mm(pow_table(scalar(w, device), m), scalar(g, device))
-    return zh_inv, gpow, ginvpow, dpow
+    c = (zh_inv, gpow, ginvpow, dpow)
+    if 4 * m * FR_BYTES <= R3_CONSTS_SHARE * _memory_bytes(device):
+        _R3_CONSTS[(m, device)] = c
+    return c
 
 
 def _coset_ntt(polys, m: int, gpow) -> torch.Tensor:
@@ -196,11 +228,14 @@ def round3_quotient_device(
     m = 4 * n
     dev = a_c.vals.device
     zh_inv, gpow, ginvpow, dpow = _round3_consts(m, str(dev))
-    fixed = pk_cache.coset_rows if pk_cache is not None else None
+    # the nine rows stay on the proving key only while 9 m 64 bytes fit
+    # R3_ROWCACHE_SHARE of the device's memory
+    cacheable = pk_cache is not None and 9 * m * FR_BYTES <= R3_ROWCACHE_SHARE * _memory_bytes(str(dev))
+    fixed = pk_cache.coset_rows if cacheable else None
     if fixed is None or fixed[0] != (m, str(dev)):
         rows = _coset_ntt([s1_c, s2_c, s3_c, ql_c, qr_c, qm_c, qo_c, qc_c, l1_c], m, gpow)
         fixed = ((m, str(dev)), rows)
-        if pk_cache is not None:
+        if cacheable:
             pk_cache.coset_rows = fixed
     live = _coset_ntt([a_c, b_c, c_c, z_c, pi_c], m, gpow)
     # z(w x) on the coset: w = W^(m/n), so its evaluations are z's shifted
@@ -214,18 +249,34 @@ def round3_quotient_device(
     return DPoly(t[:, : 3 * n + 6].contiguous(), Basis.MONOMIAL)
 
 
+#: round 5 combines in position chunks of this width (the JAX package's
+#: BPT_COMBINE_CHUNK default): 15 rows of up to n + 6 coefficients stack to
+#: 1 GB at 2^20 gates before the products
+COMBINE_CHUNK = 1 << 19
+
+
 def linear_combine_device(polys, coeffs: list[int], const: int) -> DPoly:
-    """sum_i coeffs[i] * polys[i] + const (monomial DPolys)."""
+    """sum_i coeffs[i] * polys[i] + const (monomial DPolys), in position
+    chunks of COMBINE_CHUNK, the constant in the first chunk only.
+    ``linear_combine_device.chunks`` counts the chunks."""
     assert polys and len(polys) == len(coeffs)
     dev = polys[0].vals.device
     m = max(len(p) for p in polys)
-    stacked = torch.stack([pad_to(p.vals, m) for p in polys], dim=1)  # (16, R, m)
     ck = FR.pack_mont([c % Q for c in coeffs], dev)[:, :, None]
-    terms = _mm(stacked, ck)
-    while terms.shape[1] > 1:
-        half = terms.shape[1] // 2
-        summed = _add(terms[:, :half], terms[:, half : 2 * half])
-        terms = torch.cat([summed, terms[:, 2 * half :]], dim=1)
-    out = terms[:, 0]
-    out = torch.cat([_add(out[:, :1], scalar(const, dev)), out[:, 1:]], dim=-1)
-    return DPoly(out, Basis.MONOMIAL)
+    parts = []
+    for lo in range(0, m, COMBINE_CHUNK):
+        w = min(COMBINE_CHUNK, m - lo)
+        terms = _mm(torch.stack([slice_pad(p.vals, lo, w) for p in polys], dim=1), ck)  # (16, R, w)
+        while terms.shape[1] > 1:
+            half = terms.shape[1] // 2
+            summed = _add(terms[:, :half], terms[:, half : 2 * half])
+            terms = torch.cat([summed, terms[:, 2 * half :]], dim=1)
+        out = terms[:, 0]
+        if lo == 0:
+            out = torch.cat([_add(out[:, :1], scalar(const, dev)), out[:, 1:]], dim=-1)
+        parts.append(out)
+    linear_combine_device.chunks += len(parts)
+    return DPoly(parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1), Basis.MONOMIAL)
+
+
+linear_combine_device.chunks = 0

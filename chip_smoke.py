@@ -12,6 +12,9 @@
                                      # the same way
     python3 chip_smoke.py --prove-profile  # phases 1-2, then one warm 2^16 prove profiled, its
                                      # addition and tree launches and copy kernels, the same way
+    python3 chip_smoke.py --plan-times  # phases 1-2, then the first transforms' plan time split
+                                     # into its pieces at 2^16 and 2^20 gates (a fresh process)
+    python3 chip_smoke.py --large    # phases 1-2, then phase 11 alone
 
 The plans, cold and warm proves with their round spans, timed in a process
 that runs nothing else: ``python -m baby_plonk_tpu_torch bench``.
@@ -95,10 +98,29 @@ Phases, each printed with its seconds:
      round3_combine, grand_product_fg, field_scan and its commit kernel, and
      no wrapper may see a CPU tensor; printed per worker and backend: each
      prove's seconds, and its cross-process collectives and bytes sent
+ 11. 2^20 gates, the reference's configuration (BASELINE.md): the device SRS
+     of 2^20 + 6 powers, mul_chain(2^20), Program.from_strs, the proving
+     key and the fixed-base tables (131,073 groups), each timed; the first
+     transform of 2^20 and 2^22 in each direction (its plan); a cold and a
+     warm prove with their spans and the device memory after each round; the
+     624-byte proof verifies, a wrong public input is rejected; at the
+     default widths rounds 4 and 5 run in position chunks and round 3's
+     caches hold; under the same blinding the Pippenger and the bit-serial
+     prove (9 launches of their MSM, no g1_padd) and a prove with the memory
+     governors forced (chunks of 2^17, both round-3 budgets 0, nothing
+     cached) give the same bytes; then the kernels at the path's shapes
+     against their plain versions: the (16, 1, 2^22) NTT forward and inverse
+     through the composed passes (4 sub-NTT launches, 1 composed call),
+     round 3's combination at 2^22 lanes, the Horner kernel over 3 x 131,073
+     groups and the group tree over its 64 chunks, the table build over
+     131,073 groups and powers of tau over 2^20 + 6 lanes (the plain versions
+     on the whole, or on slices at both ends where the whole would take
+     minutes)
 Then one JSON line of kernels (each row with its launches on the main or
-the named path, on the same path through MeshEngine, and through it over
-two processes: launches_mp), the card line with the cold and warm prove of
-phases 4, 9 and 10, and the final status line.
+the named path, on the same path through MeshEngine, through it over two
+processes (launches_mp), and on phase 11's 2^20 path (launches_2p20)), the
+card line with the cold and warm prove of phases 4, 9, 10 and 11, and the
+final status line.
 Any failure raises: non-zero exit, no status line.
 """
 import json
@@ -236,6 +258,30 @@ def random_field(rng, spec, shape, device):
     return torch.from_numpy(a.astype(np.int32)).to(device)
 
 
+def record_row(results, name, source, replaces, wrapper, err, times, plain_ms, nbytes, mads, run=None, **extra):
+    """Append one kernel row to ``results``. ``times``: (device ms, host us)
+    of one call of the wrapper; ``nbytes``: every input read once and every
+    output written once; ``mads``: the 32-bit multiply-adds this run's inputs
+    need. No single PyTorch call computes any of these modular functions:
+    library_ms is null throughout. ``run``: the prove of phase 6 that gives
+    the wrapper this shape ("bitserial" or "pippenger"), None for the main
+    path, "mesh" for a form only phase 9's MeshEngine prove calls, "2^20" for
+    phase 11's 2^20-gate path, "off" for a wrapper that no prove calls any
+    more. ``extra``: further keys of the row."""
+    from baby_plonk_tpu_torch.utils.roofline import bound
+
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
+    ms, wrapper_us = times
+    bound_ms, bound_by = bound(nbytes, mads)
+    results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "wrapper": wrapper, "run": run, "max_abs_err": err, "ms": ms, "host_us": wrapper_us,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None, **extra})
+    print(f"  {name}: exact, device {ms:.4f} ms, host {wrapper_us:.1f} us a call, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4g} ms ({bound_by}), share {bound_ms / ms:.2f}", flush=True)
+
+
 def check_kernels(dev, results):
     """Phase 3: each kernel wrapper on the card against its plain version."""
     import numpy as np
@@ -252,26 +298,8 @@ def check_kernels(dev, results):
     rng = np.random.default_rng(SEED)
     FR, FQ = limbs.FR, limbs.FQ
 
-    def record(name, source, replaces, wrapper, err, times, plain_ms, nbytes, mads, run=None, **extra):
-        """``times``: (device ms, host us) of one call of the wrapper;
-        ``nbytes``: every input read once and every output written once;
-        ``mads``: the 32-bit multiply-adds this run's inputs need. No single
-        PyTorch call computes any of these modular functions: library_ms is
-        null throughout. ``run``: the prove of phase 6 that gives the wrapper
-        this shape ("bitserial" or "pippenger"), None for the main path, "mesh"
-        for a form only phase 9's MeshEngine prove calls, "off" for a wrapper
-        that no prove calls any more.
-        ``extra``: further keys of the row."""
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
-        ms, wrapper_us = times
-        bound_ms, bound_by = bound(nbytes, mads)
-        results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "wrapper": wrapper, "run": run, "max_abs_err": err, "ms": ms, "host_us": wrapper_us,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None, **extra})
-        print(f"  {name}: exact, device {ms:.4f} ms, host {wrapper_us:.1f} us a call, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4g} ms ({bound_by}), share {bound_ms / ms:.2f}", flush=True)
+    def record(*args, **kwargs):
+        record_row(results, *args, **kwargs)
 
     FIELD_CU = "baby_plonk_tpu_torch/csrc/field.cu"
     PALLAS = "baby_plonk_tpu/ops/pallas_kernels.py"
@@ -1474,11 +1502,440 @@ def mp_path(dev, circuit, fixed_proof):
     return out
 
 
+#: the size of the reference's configuration: BASELINE.md's 2^20-gate proof
+LARGE_LOG2 = 20
+
+
+def round_peaks(prover, dev):
+    """Wrap the five rounds of ``prover`` so that each records the most
+    device memory torch has held allocated since the last reset of the peak,
+    read when the round returns; returns the dict they fill."""
+    import torch
+
+    peaks = {}
+    for k in range(1, 6):
+        def wrapped(real=getattr(prover, f"round_{k}"), k=k):
+            out = real()
+            torch.cuda.synchronize(dev)
+            peaks[f"round_{k}"] = torch.cuda.max_memory_allocated(dev)
+            return out
+        setattr(prover, f"round_{k}", wrapped)
+    return peaks
+
+
+def chunk_counts():
+    """The position chunks so far of round 4's evaluations and of round 5's
+    combination (``eval_many.chunks``, ``linear_combine_device.chunks``)."""
+    from baby_plonk_tpu_torch.ops import dpoly, prover_kernels
+
+    return {"eval": dpoly.eval_many.chunks, "combine": prover_kernels.linear_combine_device.chunks}
+
+
+def chunks_since(start):
+    return {k: v - start[k] for k, v in chunk_counts().items()}
+
+
+def large_path(dev, counters, results):
+    """Phase 11: the main path at 2^20 gates on one card, the reference's
+    configuration (BASELINE.md: the 2^20-gate proof at one chip). Returns the
+    counts of the 2^20 path (set-up, cold and warm prove, verify) and the
+    cold and warm prove's seconds."""
+    import numpy as np
+    import torch
+
+    from baby_plonk_tpu_torch import config
+    from baby_plonk_tpu_torch.ops import dpoly, g1_vec, kernels, limbs, msm_fixed, ntt, prover_kernels, srs
+    from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, Verifier, mul_chain
+    from baby_plonk_tpu_torch.utils.metrics import get_metrics
+    from baby_plonk_tpu_torch.utils.roofline import (FR_BYTES, FR_MUL, bound, horner_work, powers_of_tau_work,
+                                                     tables_work, tree_work)
+
+    rng = np.random.default_rng(SEED + LARGE_LOG2)
+    FR = limbs.FR
+    n = 1 << LARGE_LOG2
+    m = 4 * n
+    gib = 1 << 30
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(dev)
+
+    # -- the 2^20 path, its counts set to 0 just before it and read just after
+    zero_counts(counters)
+    composed0 = kernels.ntt_sub_4step.composed
+    t = time.perf_counter()
+    setup = Setup.generate_srs_device(n + 6, TAU, cache=False, device=dev)
+    torch.cuda.synchronize()
+    srs_s = time.perf_counter() - t
+    t = time.perf_counter()
+    constraints, witness, public = mul_chain(n)
+    chain_s = time.perf_counter() - t
+    t = time.perf_counter()
+    program = Program.from_strs(constraints, n)
+    program_s = time.perf_counter() - t
+    t = time.perf_counter()
+    program.common_preprocessed_input()
+    cpi_s = time.perf_counter() - t
+    tabs = msm_fixed.tables_for_setup(setup, dev)
+    t = time.perf_counter()
+    packed = tabs.tables()
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t
+    G, gc = packed.shape[0], tabs.chunk // msm_fixed.GROUP
+    full, rest = tabs.launch_groups(n + 6)
+    assert packed.shape == (full * gc + rest, 256, 24), f"the SRS's tables are {tuple(packed.shape)}"
+    print(f"  set-up: device SRS 2^{LARGE_LOG2} + 6 {srs_s:.3f} s; mul_chain(2^{LARGE_LOG2}) {chain_s:.3f} s; Program.from_strs "
+          f"{program_s:.3f} s; common_preprocessed_input {cpi_s:.3f} s; fixed-base tables of {G} groups "
+          f"({packed.numel() * 4} bytes) {tables_s:.3f} s", flush=True)
+    # a transform's first call builds its plan: each size and direction of the
+    # prove, first call less second, as the bench's plan_s
+    plan_s = {}
+    for log2n in (LARGE_LOG2, LARGE_LOG2 + 2):
+        x = torch.zeros((16, 1, 1 << log2n), dtype=torch.int32, device=dev)
+        for inverse in (False, True):
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ntt.ntt_device(x, inverse)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            plan_s[f"2^{log2n} {'inverse' if inverse else 'forward'}"] = times[0] - times[1]
+    del x
+    print(f"  plans (first transform less second), s: {json.dumps(plan_s)}; in all {sum(plan_s.values()):.3f}",
+          flush=True)
+
+    engine = TorchEngine(dev)
+    blinding = list(range(1, 12))
+    proofs, seconds, peaks = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = None
+    for label in ("cold", "warm"):
+        if label == "warm":
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = counts(counters)
+            chunks0 = chunk_counts()
+        prover = Prover(setup, program, engine)
+        peaks[label] = round_peaks(prover, dev)
+        get_metrics().reset()
+        t = time.perf_counter()
+        proof = prover.prove(witness, blinding=blinding)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t
+        proofs[label] = proof.to_bytes()
+        phase(f"2^{LARGE_LOG2}: {label} prove", t, f"spans: {get_metrics().report()}")
+        print(f"  2^{LARGE_LOG2} {label} prove: device memory after each round (max allocated since the "
+              f"{'cold prove' if label == 'cold' else 'warm prove'} began), GiB: "
+              + ", ".join(f"{k} {v / gib:.3f}" for k, v in peaks[label].items()), flush=True)
+    default_chunks = chunks_since(chunks0)
+    resident_warm = torch.cuda.memory_allocated(dev)
+    warm_counts = {k: v - before[k] for k, v in counts(counters).items()}
+    assert proofs["cold"] == proofs["warm"], "the cold and warm 2^20 proofs differ under one blinding"
+    assert len(proofs["warm"]) == 624, "a proof is 624 bytes"
+    t = time.perf_counter()
+    ok = Verifier(setup, program, proof, engine=engine).verify(public)
+    verify_s = time.perf_counter() - t
+    phase(f"2^{LARGE_LOG2}: verify (incl. 8 preprocessed commits)", t, f"-> {ok}")
+    assert ok, "the 2^20 proof does not verify"
+    assert not Verifier(setup, program, proof, engine=engine).verify([(public[0] + 1) % (1 << 255)]), (
+        "a wrong public input was accepted at 2^20")
+    print("  2^20: 624-byte proof verifies; a wrong public input rejected", flush=True)
+    large_counts = counts(counters)
+    composed = kernels.ntt_sub_4step.composed - composed0
+    print(f"  launches, 2^20 path: {json.dumps(large_counts)}; transforms through the composed passes: {composed}",
+          flush=True)
+    assert large_counts["kernels.ntt_sub"] == 2 * (large_counts["kernels.ntt_sub_4step"] - composed), (
+        "a transform is two sub-NTT launches, a composed one four (its two inner transforms)")
+    print(f"  launches, 2^20 warm prove: {json.dumps(warm_counts)}", flush=True)
+    assert warm_counts["msm_fixed.msm_fixed_horner"] == 4, "a warm prove is 4 commit rounds, one Horner launch each"
+    assert warm_counts["g1_vec.tree_reduce"] == 3 * 4, "a warm prove's 4 commits are 3 tree launches each"
+    assert warm_counts["g1_vec.padd"] == 0, "the elementwise addition launched in the 2^20 prove"
+    assert warm_counts["prover_kernels.round3_combine"] == warm_counts["prover_kernels.grand_product_fg"] == 1
+    for key in ("limbs.mont_mul", "limbs.field_scan", "limbs.pow_table", "kernels.ntt_sub", "msm_fixed.build_tables",
+                "srs.powers_of_tau"):
+        assert large_counts[key] > 0, f"{key} did not launch on the 2^20 path"
+    card_bytes = prover_kernels._memory_bytes(str(dev))
+    budgets = (prover_kernels.R3_CONSTS_SHARE * card_bytes, prover_kernels.R3_ROWCACHE_SHARE * card_bytes)
+    assert 9 * m * FR_BYTES <= budgets[1] and 4 * m * FR_BYTES <= budgets[0], (
+        f"round 3's caches do not fit their shares of this card's {card_bytes} bytes at 2^20 gates")
+    assert (m, str(dev)) in prover_kernels._R3_CONSTS, "round 3's constants are not cached within their budget"
+    assert program.common_preprocessed_input().coset_rows is not None, (
+        "within their budget the nine coset rows stay on the proving key at 2^20")
+    # one evaluation and one combination a prove
+    assert (default_chunks["eval"] > 1, default_chunks["combine"] > 1) == (
+        n >= dpoly.EVAL_CHUNK, n >= prover_kernels.COMBINE_CHUNK), (
+        f"rounds 4 and 5 chunked against their widths: {default_chunks}")
+    print(f"  warm prove at the default widths ({dpoly.EVAL_CHUNK}, {prover_kernels.COMBINE_CHUNK}): "
+          f"{default_chunks['eval']} evaluation chunks, {default_chunks['combine']} combine chunks; round 3's "
+          f"constants and coset rows cached (budgets {budgets[0] / gib:.3f} and {budgets[1] / gib:.3f} GiB of the "
+          f"card's {card_bytes / gib:.3f})", flush=True)
+
+    # -- the same blinding on the variable-base paths, and with the governors
+    # forced, round 3's caches dropped first (the forced prove builds its
+    # tables and rows and frees them at round 3's end; nothing of phase 11
+    # reads the caches after it)
+    prev = config.get_config()
+    governors = (dpoly.EVAL_CHUNK, prover_kernels.COMBINE_CHUNK, prover_kernels.R3_CONSTS_SHARE,
+                 prover_kernels.R3_ROWCACHE_SHARE)
+    pk = program.common_preprocessed_input()
+    try:
+        for label, cfg in (
+            ("pippenger", config.Config(commit_fixed_base=False, msm_algorithm="pippenger")),
+            ("bitserial", config.Config(commit_fixed_base=False, msm_algorithm="bitserial")),
+            ("governors forced", config.Config()),
+        ):
+            config.set_config(cfg)
+            forced = label == "governors forced"
+            if forced:
+                dpoly.EVAL_CHUNK = prover_kernels.COMBINE_CHUNK = min(1 << 17, n >> 3)
+                prover_kernels.R3_CONSTS_SHARE = prover_kernels.R3_ROWCACHE_SHARE = 0
+                prover_kernels._R3_CONSTS.clear()
+                pk.coset_rows = None
+                torch.cuda.empty_cache()
+                chunks0 = chunk_counts()
+            zero_counts(counters)
+            torch.cuda.reset_peak_memory_stats(dev)
+            prover = Prover(setup, program, engine)
+            run_peaks = round_peaks(prover, dev)
+            get_metrics().reset()
+            t = time.perf_counter()
+            proof = prover.prove(witness, blinding=blinding)
+            torch.cuda.synchronize()
+            phase(f"2^{LARGE_LOG2}: {label} prove", t, f"spans: {get_metrics().report()}")
+            c = counts(counters)
+            if forced:
+                seen = chunks_since(chunks0)
+                assert prover_kernels._R3_CONSTS == {} and pk.coset_rows is None, (
+                    "round 3's constants or coset rows were cached at a budget of 0")
+                print(f"  governors forced: {seen['eval']} evaluation chunks, {seen['combine']} combine "
+                      f"chunks; device memory after each round, GiB: "
+                      + ", ".join(f"{k} {v / gib:.3f}" for k, v in run_peaks.items())
+                      + f"; allocated after the prove {torch.cuda.memory_allocated(dev) / gib:.3f} GiB (after the "
+                      f"default warm prove {resident_warm / gib:.3f})", flush=True)
+                assert seen["eval"] > default_chunks["eval"] and seen["combine"] > default_chunks["combine"], (
+                    "the forced widths cut rounds 4 and 5 finer")
+            else:
+                print(f"  {label}: bpt_msm_pippenger {c['msm_pippenger.msm_pippenger']}, msm_partials "
+                      f"{c['msm.msm_partials']}, g1_padd {c['g1_vec.padd']}, g1_pdouble {c['g1_vec.pdouble']}, "
+                      f"Horner {c['msm_fixed.msm_fixed_horner']} launches", flush=True)
+                assert c["msm_fixed.msm_fixed_horner"] == 0 and c["g1_vec.padd"] == 0 and c["g1_vec.pdouble"] == 0
+                assert c["msm_pippenger.msm_pippenger"] == (9 if label == "pippenger" else 0)
+                assert c["msm.msm_partials"] == (9 if label == "bitserial" else 0)
+            assert proof.to_bytes() == proofs["warm"], f"2^20 {label} prove: not the fixed-base proof bytes"
+    finally:
+        config.set_config(prev)
+        (dpoly.EVAL_CHUNK, prover_kernels.COMBINE_CHUNK, prover_kernels.R3_CONSTS_SHARE,
+         prover_kernels.R3_ROWCACHE_SHARE) = governors
+    print("  2^20 proof bytes equal: fixed-base == Pippenger == bit-serial == governors forced", flush=True)
+
+    # -- the kernels at the 2^20 path's shapes against their plain versions
+    FIELD_CU, PALLAS = "baby_plonk_tpu_torch/csrc/field.cu", "baby_plonk_tpu/ops/pallas_kernels.py"
+    torch.cuda.empty_cache()
+    # the 2^22 transform: through the composed passes (2048 x 2048 > SUB_MAX_M)
+    log2m = LARGE_LOG2 + 2
+    past_sub = ntt.split(m)[1] > kernels.SUB_MAX_M  # 2^22 = 2048 x 2048
+    x = random_field(rng, FR, (1, m), dev)
+    errs = []
+    for inverse in (False, True):
+        sub0, comp0 = kernels.ntt_sub.launches, kernels.ntt_sub_4step.composed
+        got = ntt.ntt_device(x, inverse)
+        sub_n, comp_n = kernels.ntt_sub.launches - sub0, kernels.ntt_sub_4step.composed - comp0
+        assert (sub_n, comp_n) == ((4, 1) if past_sub else (2, 0)), (
+            f"a 2^{log2m} transform: {sub_n} sub-NTT launches, {comp_n} composed calls")
+        want, plain_ms = once_ms(lambda: ntt.ntt_device(x, inverse, plain=True))
+        err = max_abs_err(got, want)
+        assert err == 0, f"ntt_device at 2^{log2m} (inverse={inverse}) differs from its plain version"
+        errs.append(err)
+        del got, want
+        print(f"  ntt_device (16, 1, 2^{log2m}) {'inverse' if inverse else 'forward'}: exact, {sub_n} sub-NTT "
+              f"launches, {comp_n} composed call; plain {plain_ms:.1f} ms", flush=True)
+        if not inverse:
+            fwd_plain_ms = plain_ms
+    x5 = random_field(rng, FR, (5, m), dev)
+    ms5 = cuda_ms(lambda: ntt.ntt_device(x5), 3)
+    del x5
+    record_row(results, f"ntt_sub_4step (16, 1, 2^{log2m}, 1){', composed' if past_sub else ''}",
+               "baby_plonk_tpu_torch/csrc/ntt.cu (4 launches, baby_plonk_tpu_torch/ops/kernels.py::"
+               "_four_step_composed)", f"{PALLAS}:402", "kernels.ntt_sub_4step",
+               max(errs), (cuda_ms(lambda: ntt.ntt_device(x), 5), host_us(lambda: ntt.ntt_device(x), 3)), fwd_plain_ms,
+               FR_BYTES * 3 * m, FR_MUL * ((m // 2) * log2m + m), run="2^20",
+               shape=f"(16, 1, 2^{log2m}, 1) forward", ms_k5=ms5,
+               bound_ms_k5=bound(FR_BYTES * 11 * m, FR_MUL * 5 * ((m // 2) * log2m + m))[0])
+    del x
+    # round 3's combination at 2^22 lanes; the plain version in slices of 2^18
+    # lanes, z(w x) handed to each as a rolled row
+    live, fixed = random_field(rng, FR, (5, m), dev), random_field(rng, FR, (9, m), dev)
+    zh_inv, dpow = random_field(rng, FR, (m,), dev), random_field(rng, FR, (m,), dev)
+    sc = random_field(rng, FR, (6,), dev)
+    got = prover_kernels.round3_combine(live, fixed, zh_inv, dpow, sc, 4)
+    zw = torch.roll(live[:, 3], -4, dims=-1)
+    err, plain_ms, step = 0, 0.0, min(1 << 18, m)
+    for lo in range(0, m, step):
+        part = slice(lo, lo + step)
+        want, ms = once_ms(lambda: prover_kernels.round3_combine(
+            live[..., part], fixed[..., part], zh_inv[:, part], dpow[:, part], sc, 0, zw=zw[:, part], plain=True))
+        err, plain_ms = max(err, max_abs_err(got[:, part], want)), plain_ms + ms
+    record_row(results, f"round3_combine (2^{log2m} lanes)", FIELD_CU, "baby_plonk_tpu/ops/prover_kernels.py:75",
+               "prover_kernels.round3_combine", err,
+               (cuda_ms(lambda: prover_kernels.round3_combine(live, fixed, zh_inv, dpow, sc, 4), 5),
+                host_us(lambda: prover_kernels.round3_combine(live, fixed, zh_inv, dpow, sc, 4), 3)), plain_ms,
+               FR_BYTES * (17 * m + 6), 19 * FR_MUL * m, run="2^20", plain_shape=f"{m // step} slices of {step} lanes")
+    del live, fixed, zh_inv, dpow, zw, got
+    # the Horner kernel over the SRS's groups (131,073 at 2^20), 3 sets of
+    # n + 2 scalars (round 1's commit); the plain version on the first and
+    # last 128 groups
+    n_sc = n + 2
+    scp = torch.zeros((16, 3, 8 * G), dtype=torch.int32, device=dev)
+    scp[:, :, :n_sc] = random_field(rng, FR, (3, n_sc), dev)
+    W = msm_fixed.windows_for(3 * G, dev)
+    part = msm_fixed.msm_fixed_horner(packed, scp, W)
+    k = min(128, G // 2)
+    ends = [slice(0, k), slice(G - k, G)]
+    sub_tables = torch.cat([packed[s] for s in ends])
+    sub_sc = torch.cat([scp[:, :, 8 * s.start : 8 * s.stop] for s in ends], dim=-1)
+    want, horner_plain_ms = once_ms(lambda: msm_fixed.msm_fixed_plain(sub_tables, sub_sc, W))
+    err = max_abs_err(tuple(torch.cat([c[..., s] for s in ends], dim=-1) for c in part), want)
+    record_row(results, f"msm_fixed_horner ({G:,} groups)", "baby_plonk_tpu_torch/csrc/msm_fixed.cu",
+               f"{PALLAS}:242", "msm_fixed.msm_fixed_horner", err,
+               timed_events(lambda: msm_fixed.msm_fixed_horner(packed, scp, W), 3), horner_plain_ms,
+               *horner_work(scp, G, W), run="2^20", shape=f"3 x (2^{LARGE_LOG2} + 2) scalars, {G} groups, W = {W}",
+               windows=W, commit_ms=cuda_ms(lambda: tabs.msm_many([scp[:, i, :n_sc] for i in range(3)]), 3),
+               plain_shape=f"the first and last {k} groups, 3 sets")
+    # the group tree over the commit's whole chunks of 2048 groups (64 at 2^20)
+    whole = tuple(c[..., : full * gc].reshape(24, 3, W, full, gc) for c in part)
+    want, tree_plain_ms = once_ms(lambda: g1_vec.tree_reduce_plain(whole))
+    one_a, one_b = (tuple(c[:, 0, 0, i].contiguous() for c in part) for i in (0, 1))
+    add_ms = device_ms(lambda: g1_vec.padd(one_a, one_b), 100)  # one lane: the depth floor's unit
+    levels = gc.bit_length() - 1
+    nbytes, mads = tree_work(gc, 3 * W * full)
+    ms = device_ms(lambda: g1_vec.tree_reduce(whole), 10)
+    record_row(results, f"g1_tree (24, 3, {W}, {full}, {gc})", "baby_plonk_tpu_torch/csrc/g1.cu",
+               "baby_plonk_tpu/ops/g1_vec.py:298", "g1_vec.tree_reduce", max_abs_err(g1_vec.tree_reduce(whole), want),
+               (ms, host_us(lambda: g1_vec.tree_reduce(whole), 10)), tree_plain_ms, nbytes, mads, run="2^20",
+               shape=str(tuple(whole[0].shape)), levels=levels, depth_floor_ms=levels * add_ms, add_ms=add_ms,
+               share_of_floor=max(levels * add_ms, bound(nbytes, mads)[0]) / ms,
+               plan=g1_vec.tree_plan(gc, 3 * W * full, torch.cuda.get_device_properties(dev).multi_processor_count))
+    del part, whole, want, scp, sub_sc
+    # the table build over the SRS's groups; the plain version on the first
+    # 1024 groups and the last one (copies of point 0 pad it)
+    pts = srs.setup_points(setup, dev)
+    pad = 8 * G - (n + 6)
+    k = min(1024, G - 1)
+    last = tuple(torch.cat([c[:, 8 * (G - 1):], c[:, :1].expand(24, pad)], dim=-1) for c in pts)
+    firsts = tuple(c[:, : 8 * k] for c in pts)
+    want, tables_plain_ms = once_ms(lambda: msm_fixed.build_tables_plain(
+        *(torch.cat([a, b], dim=-1) for a, b in zip(firsts, last))))
+    err = max_abs_err(torch.cat([packed[:k], packed[-1:]]), want)
+    padded = tuple(torch.cat([c, c[:, :1].expand(24, pad)], dim=-1) for c in pts)
+    del want
+    torch.cuda.empty_cache()
+    record_row(results, f"msm_build_tables ({G:,} groups)", "baby_plonk_tpu_torch/csrc/msm_fixed.cu",
+               "baby_plonk_tpu/ops/msm_fixed.py:83", "msm_fixed.build_tables", err,
+               timed_events(lambda: msm_fixed.build_tables(*padded), 2), tables_plain_ms, *tables_work(G), run="2^20",
+               shape=f"the 2^{LARGE_LOG2} + 6 SRS, {G} groups", plain_shape=f"the first {k} groups and the last one")
+    del padded
+    # powers of tau over the SRS's 2^20 + 6 lanes; the plain version on the
+    # first and last 2^12 lanes, over the table of multiples phase 3 held
+    base = srs.generator_base(dev)
+    sc = srs.tau_scalars(n + 6, TAU, dev)
+    got = srs.powers_of_tau(sc, base)
+    k = min(1 << 12, (n + 6) // 2)
+    ends = [slice(0, k), slice(n + 6 - k, n + 6)]
+    sub = torch.cat([sc[:, s] for s in ends], dim=-1)
+    want, pot_plain_ms = once_ms(lambda: srs.powers_of_tau_plain(sub, base, srs.base_table(base)))
+    err = max(max_abs_err(tuple(torch.cat([c[:, s] for s in ends], dim=-1) for c in got), want),
+              max_abs_err(got, pts))
+    record_row(results, f"powers_of_tau (2^{LARGE_LOG2} + 6 lanes)", "baby_plonk_tpu_torch/csrc/srs.cu",
+               "baby_plonk_tpu/ops/srs.py:24", "srs.powers_of_tau", err,
+               timed_events(lambda: srs.powers_of_tau(sc, base), 3), pot_plain_ms, *powers_of_tau_work(sc),
+               run="2^20", shape=f"2^{LARGE_LOG2} + 6 lanes, the table kept",
+               plain_shape=f"the first and last {k} lanes")
+    del got, want, sc
+    print(f"  device memory: {resident / gib:.3f} GiB allocated before phase 11, "
+          f"{torch.cuda.memory_allocated(dev) / gib:.3f} GiB at its end", flush=True)
+    return large_counts, (seconds["cold"], seconds["warm"]), verify_s
+
+
+def plan_times(dev):
+    """Where a transform's plan time goes, in one process that has run no
+    transform yet: at 2^16 and then at 2^20 gates, each size of the prove (n
+    and 4 n) and direction, the first call of ``ntt_device`` split into the
+    plan (``ntt._plan4``): its cross table built in Python (the plan's time
+    less its ``pack_mont``) and ``pack_mont`` of it (the host codec, the
+    upload and ``to_mont``); the sub-NTT twiddle tables
+    (``ntt.stage_twiddles``, which builds and packs ``sub_twiddles``); and
+    the sub-NTT kernel's launches (the first of the process also opts in to
+    the kernel's shared memory and loads its module); beside them the second
+    call, its launches, and the rest of the first call."""
+    import torch
+
+    from baby_plonk_tpu_torch.ops import kernels, limbs, ntt
+
+    spent = {}
+
+    def timer(key, fn):
+        def timed_fn(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return timed_fn
+
+    real = (ntt._plan4, ntt.stage_twiddles, kernels.launch)
+    real_pack = limbs.FR.pack_mont
+    timed_pack = timer("pack_mont", real_pack)
+    timed_launch = timer("sub-NTT launches", real[2])
+    ntt._plan4 = timer("plan", real[0])
+    ntt.stage_twiddles = timer("twiddle tables", real[1])
+    # a twiddle table (at most 512 entries) is packed inside stage_twiddles
+    limbs.FR.pack_mont = lambda xs, device: (timed_pack if len(xs) > 512 else real_pack)(xs, device)
+    kernels.launch = lambda name, *a: (timed_launch if name == "bpt_ntt_sub" else real[2])(name, *a)
+    out = []
+    try:
+        for log2 in (16, LARGE_LOG2):
+            for log2n in (log2, log2 + 2):
+                x = torch.zeros((16, 1, 1 << log2n), dtype=torch.int32, device=dev)
+                for inverse in (False, True):
+                    calls, pieces, built = [], [], []
+                    for _ in range(2):
+                        spent.clear()
+                        misses = real[0].cache_info().misses
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        ntt.ntt_device(x, inverse)
+                        torch.cuda.synchronize()
+                        calls.append(time.perf_counter() - t)
+                        pieces.append(dict(spent))
+                        built.append(real[0].cache_info().misses - misses)
+                    first = pieces[0]
+                    # a wrapped piece that no call reached would read as 0 s:
+                    # the split holds only while each is hit where expected
+                    missing = {"plan", "pack_mont", "sub-NTT launches"} - first.keys()
+                    assert not missing, f"plan 2^{log2n}: the first call never reached {sorted(missing)}"
+                    assert built[0] > 0 and built[1] == 0 and "sub-NTT launches" in pieces[1], (
+                        f"plan 2^{log2n}: plans built by the first and second call {built}, or the second "
+                        "launched no sub-NTT")
+                    cross = first.pop("plan") - first["pack_mont"]
+                    assert cross > 0, f"plan 2^{log2n}: the plan took less than its pack_mont"
+                    row = {"prove": f"2^{log2}", "size": f"2^{log2n}", "inverse": inverse, "first_s": calls[0],
+                           "second_s": calls[1], "plan_s": calls[0] - calls[1], "cross table (Python)": cross,
+                           **first, "rest_s": calls[0] - cross - sum(first.values()),
+                           "second_launches_s": pieces[1]["sub-NTT launches"]}
+                    out.append(row)
+                    print(f"  plan 2^{log2n} {'inverse' if inverse else 'forward'} (prove 2^{log2}), s: "
+                          + ", ".join(f"{k} {v:.4f}" for k, v in row.items() if isinstance(v, float)), flush=True)
+    finally:
+        ntt._plan4, ntt.stage_twiddles, kernels.launch = real
+        del limbs.FR.pack_mont
+    print(json.dumps({"plan_times": out}), flush=True)
+
+
 #: every key of the bench's line
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "roofline_pct", "ntt_coeffs_per_s", "ntt_log2",
               "prove_warm_s", "prove_log2", "verify_s", "verifier_preprocess_s", "msm_log2", "prove_warm_range_s",
               "prove_cold_s", "plan_s", "tables_build_s", "srs_device_s", "srs_load_s", "srs_bytes", "round_ms",
-              "device_busy_share", "build_s", "device", "msm_variable_points_per_s")
+              "peak_mem_bytes", "device_busy_share", "build_s", "device", "msm_variable_points_per_s")
 
 
 def bench_child(cache_dir):
@@ -1543,6 +2000,18 @@ def main():
         return
     if "--prove-profile" in sys.argv:
         prove_profile(dev)
+        print(f"card: {card}", flush=True)
+        return
+    if "--plan-times" in sys.argv:
+        plan_times(dev)
+        print(f"card: {card}", flush=True)
+        return
+    if "--large" in sys.argv:
+        t = time.perf_counter()
+        results = []
+        large_path(dev, kernel_counters(), results)
+        phase("11 2^20 gates", t)
+        print(json.dumps({"kernels": results}), flush=True)
         print(f"card: {card}", flush=True)
         return
 
@@ -1624,15 +2093,22 @@ def main():
                  "fixed": {k: v + runs["fixed warm"]["launches"][k] for k, v in runs["fixed cold"]["launches"].items()}}
     phase("10 multi-process mesh", t)
 
+    # 11. the reference's 2^20-gate configuration
+    t = time.perf_counter()
+    large_counts, large_s, large_verify_s = large_path(dev, counters, results)
+    phase("11 2^20 gates", t)
+
     for banned in ("jax", "jaxlib", "baby_plonk_tpu"):
         assert not any(m == banned or m.startswith(banned + ".") for m in sys.modules), (
             f"{banned} was imported")
     for r in results:
         key, run = r.pop("wrapper"), r.pop("run")
-        r["path"] = {None: "main", "off": "off the main path", "mesh": "mesh (phase 9's fixed-base run)"}.get(
-            run, f"variable-base ({run})")
+        r["path"] = {None: "main", "off": "off the main path", "mesh": "mesh (phase 9's fixed-base run)",
+                     "2^20": "2^20 gates (phase 11)"}.get(run, f"variable-base ({run})")
         r["launches"] = (vb_counts[run][key] if run in vb_counts else mesh_counts["fixed"][key] if run == "mesh"
-                         else run_counts[key])
+                         else large_counts[key] if run == "2^20" else run_counts[key])
+        # the same wrapper on phase 11's 2^20-gate path (set-up, cold and warm prove, verify)
+        r["launches_2p20"] = large_counts[key]
         assert (r["launches"] > 0) != (run == "off"), f"{r['name']}: {r['launches']} launches on its path"
         # the same path through MeshEngine (Pippenger stays single-device)
         r["launches_mesh"] = 0 if run == "pippenger" else mesh_counts.get(run, mesh_counts["fixed"])[key]
@@ -1645,7 +2121,8 @@ def main():
         + ", ".join(f"{max(r['runs'][label]['s'] for r in rs):.3f}" for label in ("fixed cold", "fixed warm"))
         for backend, rs in mp.items())
     print(f"card: {card} | prove 2^16 cold, warm s: TorchEngine {single_s[0]:.3f}, {single_s[1]:.3f}; "
-          f"MeshEngine D = 4 on {physical} card(s) {mesh_s[0]:.3f}, {mesh_s[1]:.3f}; {mp_s}", flush=True)
+          f"MeshEngine D = 4 on {physical} card(s) {mesh_s[0]:.3f}, {mesh_s[1]:.3f}; {mp_s} | prove 2^20 cold, "
+          f"warm, verify s: {large_s[0]:.3f}, {large_s[1]:.3f}, {large_verify_s:.3f}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),
         flush=True)

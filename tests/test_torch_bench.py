@@ -19,13 +19,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_KEYS = ("metric", "value", "unit", "vs_baseline", "roofline_pct", "ntt_coeffs_per_s", "ntt_log2",
             "prove_warm_s", "prove_log2", "verify_s", "verifier_preprocess_s")
 PORT_KEYS = ("msm_log2", "prove_warm_range_s", "prove_cold_s", "plan_s", "tables_build_s", "srs_device_s",
-             "srs_load_s", "srs_bytes", "round_ms", "device_busy_share", "build_s", "device")
+             "srs_load_s", "srs_bytes", "round_ms", "peak_mem_bytes", "device_busy_share", "build_s", "device")
 
 TIMINGS = dict(
     device="NVIDIA H100 80GB HBM3, 700.00 W", build_s=9.5, msm_log2=14, msm_s=0.004, msm_bound_s=0.001,
     host_log2=10, host_s=0.5, ntt_log2=20, ntt_s=0.002, srs_device_s=0.05, srs_load_s=0.01,
     srs_bytes=4_719_000, prove_log2=16, plan_s=1.1, tables_build_s=0.08, prove_cold_s=1.9,
-    prove_warm_s=[0.5, 0.3, 0.4], round_ms={"prover.round_1": 200.0}, verifier_preprocess_s=0.1,
+    prove_warm_s=[0.5, 0.3, 0.4], round_ms={"prover.round_1": 200.0}, peak_mem_bytes=13_000_000_000,
+    verifier_preprocess_s=0.1,
     verify_s=0.02, device_ms=30.0,
 )
 
@@ -41,7 +42,8 @@ def test_metric_line_keys_and_values():
     assert line["prove_warm_s"] == 0.4 and line["prove_warm_range_s"] == [0.3, 0.5]
     assert line["device_busy_share"] == pytest.approx(0.030 / 0.4)
     for k in ("prove_log2", "verify_s", "verifier_preprocess_s", "msm_log2", "prove_cold_s", "plan_s",
-              "tables_build_s", "srs_device_s", "srs_load_s", "srs_bytes", "round_ms", "build_s", "device"):
+              "tables_build_s", "srs_device_s", "srs_load_s", "srs_bytes", "round_ms", "peak_mem_bytes", "build_s",
+              "device"):
         assert line[k] == TIMINGS[k], k
     assert "msm_variable_points_per_s" not in line
     assert json.loads(json.dumps(line)) == line

@@ -502,3 +502,31 @@ def test_process_mesh_nccl(dev, tmp_path):
     results = multihost_smoke.spawn(multihost_smoke.smoke, (8, 5, True), 2, "nccl", "cuda", 300, dir=tmp_path)
     assert [r["device"] for r in results] == ["cuda:0", "cuda:1"]
     assert all(r["backend"] == "nccl" and r["collectives"] > 0 for r in results)
+
+
+def test_forced_memory_governors_prove_equals_default(dev, monkeypatch):
+    """A 2^10-gate prove on the card with the four memory governors forced
+    (round 4 and round 5 in position chunks of 2^7, both round-3 budgets 0:
+    nothing cached) gives the default prove's bytes, and the proof verifies."""
+    from baby_plonk_tpu_torch.ops import dpoly, prover_kernels
+    from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+    from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, Verifier, mul_chain
+
+    n = 1 << 10
+    setup = Setup.generate_srs_device(n + 6, 101, cache=False, device=dev)
+    constraints, witness, public = mul_chain(n)
+    engine, blinding = TorchEngine(dev), list(range(1, 12))
+    proofs = []
+    for forced in (False, True):
+        if forced:
+            monkeypatch.setattr(dpoly, "EVAL_CHUNK", 1 << 7)
+            monkeypatch.setattr(prover_kernels, "COMBINE_CHUNK", 1 << 7)
+            monkeypatch.setattr(prover_kernels, "R3_CONSTS_SHARE", 0)
+            monkeypatch.setattr(prover_kernels, "R3_ROWCACHE_SHARE", 0)
+        monkeypatch.setattr(prover_kernels, "_R3_CONSTS", {})
+        program = Program.from_strs(constraints, n)
+        proofs.append(Prover(setup, program, engine).prove(witness, blinding=blinding))
+        cached = program.common_preprocessed_input().coset_rows is not None
+        assert cached == (not forced) == bool(prover_kernels._R3_CONSTS)
+    assert proofs[0].to_bytes() == proofs[1].to_bytes()
+    assert Verifier(setup, program, proofs[1], engine=engine).verify(public)
