@@ -140,7 +140,7 @@ def random_scalars(rng, n: int, device) -> torch.Tensor:
 
     a = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
     a[-1] %= limbs.FR.modulus >> 240
-    return torch.from_numpy(a.astype(np.int32)).to(device)
+    return limbs.to_device(torch.from_numpy(a.astype(np.int32)), device)
 
 
 def metric_line(*, device: str, build_s: float, msm_log2: int, msm_s: float, msm_bound_s: float,

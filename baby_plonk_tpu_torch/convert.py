@@ -28,15 +28,19 @@ import torch
 
 def to_torch(a, device="cuda") -> torch.Tensor:
     """uint16 / uint32 limb array -> int32 tensor (same layout)."""
+    from .ops.limbs import to_device
+
     a = np.asarray(a)
     if a.size and int(a.max()) > 0xFFFF:
         raise ValueError("limb values must be 16-bit")
-    return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(device)
+    return to_device(torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))), device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 limb tensor -> uint32 numpy array (the JAX package's dtype)."""
-    return t.detach().cpu().numpy().astype(np.uint32)
+    from .ops.limbs import to_host
+
+    return to_host(t.detach()).numpy().astype(np.uint32)
 
 
 def srs_to_torch(points, device="cuda"):

@@ -17,6 +17,7 @@ import torch
 
 from ..fields import fr
 from ..protocol.poly import Basis
+from ..utils.metrics import get_metrics
 
 from . import limbs
 from .limbs import FR
@@ -95,7 +96,8 @@ class DPoly:
 
     @staticmethod
     def from_ints(values, basis: Basis, device) -> "DPoly":
-        return DPoly(FR.pack_mont([v % Q for v in values], device), basis)
+        with get_metrics().span("dpoly.from_ints"):
+            return DPoly(FR.pack_mont([v % Q for v in values], device), basis)
 
     @staticmethod
     def vanishing(n: int, device) -> "DPoly":
@@ -206,7 +208,7 @@ class DPoly:
         q = torch.cat(qrows[::-1], dim=-1)[:, : d - n + 1]
         if check:
             rem = _add(rows[0], pad_to(q[:, : min(n, q.shape[-1])], n))
-            assert not bool(rem.any()), "polynomial not divisible by Z_H"
+            assert not bool(limbs.to_host(rem.any())), "polynomial not divisible by Z_H"
         return DPoly(q, Basis.MONOMIAL)
 
     def divide_by_linear(self, z: int, check: bool | None = None) -> "DPoly":
@@ -226,7 +228,7 @@ class DPoly:
         q = _mul(_mul(s, pow_table(scalar(z_inv, dev), nlen)), scalar(z_inv, dev))
         if check:
             head = _add(self.vals[:, :1], _mul(scalar(z, dev), q[:, :1]))
-            assert not bool(head.any()), "polynomial not divisible by (x - z)"
+            assert not bool(limbs.to_host(head.any())), "polynomial not divisible by (x - z)"
         return DPoly(q[:, : nlen - 1], Basis.MONOMIAL)
 
     def slice_coeffs(self, start: int, stop: int | None = None) -> "DPoly":

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..fields import fq, fr
+from ..utils.metrics import get_metrics
 
 from . import kernels
 
@@ -61,6 +62,23 @@ def limbs_to_ints(a) -> list[int]:
     return [int.from_bytes(buf[i * nbytes:(i + 1) * nbytes], "little") for i in range(a.shape[1])]
 
 
+def to_device(host: torch.Tensor, device, dtype=None) -> torch.Tensor:
+    """A host tensor copied to ``device`` (cast to ``dtype`` first, where
+    given): counted in ``h2d_bytes`` and, as a blocking copy from pageable
+    memory waits for the device's stream, in ``host_syncs``."""
+    out = host.to(device=device, dtype=dtype)
+    m = get_metrics()
+    m.count("h2d_bytes", out.nbytes)
+    m.count("host_syncs")
+    return out
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in host memory: a read of device data, counted in ``host_syncs``."""
+    get_metrics().count("host_syncs")
+    return t.cpu()
+
+
 class FieldSpec:
     """A prime field for the limb kernels: modulus, limb count and the
     Montgomery constants R = 2^(16 L) mod p, R^2 mod p and
@@ -84,7 +102,7 @@ class FieldSpec:
         key = (value, str(device), dtype)
         t = self._consts.get(key)
         if t is None:
-            t = torch.from_numpy(ints_to_limbs([value], self.L)).to(device=device, dtype=dtype)
+            t = to_device(torch.from_numpy(ints_to_limbs([value], self.L)), device, dtype)
             self._consts[key] = t
         return t
 
@@ -97,20 +115,20 @@ class FieldSpec:
         a protocol scalar, as the JAX package's pack_mont of a scalar). Not
         cached: every proof brings new challenges."""
         mont = x % self.modulus * self.R % self.modulus
-        return torch.from_numpy(ints_to_limbs([mont], self.L)).to(device)
+        return to_device(torch.from_numpy(ints_to_limbs([mont], self.L)), device)
 
     # -- tensor codecs ----------------------------------------------------------
 
     def pack_raw(self, xs, device) -> torch.Tensor:
         """list[int] -> (L, n) limbs, no Montgomery scaling (MSM scalars)."""
-        return torch.from_numpy(ints_to_limbs([x % self.modulus for x in xs], self.L)).to(device)
+        return to_device(torch.from_numpy(ints_to_limbs([x % self.modulus for x in xs], self.L)), device)
 
     def pack_mont(self, xs, device) -> torch.Tensor:
         """list[int] -> (L, n) Montgomery limbs (``to_mont`` on the device)."""
         return to_mont(self, self.pack_raw(xs, device))
 
     def unpack_raw(self, a: torch.Tensor) -> list[int]:
-        return limbs_to_ints(a.reshape(self.L, -1).cpu().numpy())
+        return limbs_to_ints(to_host(a.reshape(self.L, -1)).numpy())
 
     def unpack_mont(self, a: torch.Tensor) -> list[int]:
         """(L, ...) Montgomery limbs -> canonical ints (``from_mont`` on the

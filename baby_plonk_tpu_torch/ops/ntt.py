@@ -90,8 +90,8 @@ def _plan4(n: int, inverse: bool, device: str, scaled: bool):
         for i2 in range(n2):
             cross[row + i2] = cross[prev + i2] * base_row[i2] % Q
     crossT = limbs.FR.pack_mont(cross, device).reshape(16, n1, n2)
-    br1 = torch.tensor(bit_reverse_perm(n1), dtype=torch.int64, device=device)
-    br2 = torch.tensor(bit_reverse_perm(n2), dtype=torch.int64, device=device)
+    br1 = limbs.to_device(torch.tensor(bit_reverse_perm(n1), dtype=torch.int64), device)
+    br2 = limbs.to_device(torch.tensor(bit_reverse_perm(n2), dtype=torch.int64), device)
     return n1, n2, crossT, br1, br2
 
 

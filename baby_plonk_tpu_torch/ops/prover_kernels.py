@@ -245,7 +245,7 @@ def round3_quotient_device(
     t = _mm(ntt_device(tE, inverse=True), ginvpow)
     if _debug_asserts():
         # exact division <=> the 4n-interpolant has degree <= 3n + 5
-        assert not bool(t[:, 3 * n + 6 :].any()), "constraint polynomial not divisible by Z_H"
+        assert not bool(limbs.to_host(t[:, 3 * n + 6 :].any())), "constraint polynomial not divisible by Z_H"
     return DPoly(t[:, : 3 * n + 6].contiguous(), Basis.MONOMIAL)
 
 

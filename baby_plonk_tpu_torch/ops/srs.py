@@ -55,14 +55,14 @@ def doubling_chain(base):
         return g1_vec._to32(doubling_chain_plain(base))
     dev = kernels.check_cuda(base)
     host = torch.zeros((3, CHAIN, 24), dtype=torch.int32)
-    host[:, 0] = base.cpu().T
-    buf = host.to(dev)
+    host[:, 0] = limbs.to_host(base).T
+    buf = limbs.to_device(host, dev)
     rows = [kernels.ptr(buf[c]) for c in range(3)]
     step = 24 * buf.element_size()
     for i in range(1, CHAIN):
         kernels.launch("bpt_g1_pdouble", dev, *(r + (i - 1) * step for r in rows), *(r + i * step for r in rows), 1)
         g1_vec.pdouble.launches += 1
-    return tuple(buf.cpu().transpose(1, 2).contiguous().to(dev))
+    return tuple(limbs.to_device(limbs.to_host(buf).transpose(1, 2).contiguous(), dev))
 
 
 def base_table(base):
@@ -71,7 +71,7 @@ def base_table(base):
     the first call for this (device, base), then kept in ``base_tables``."""
     from . import msm_fixed  # msm_fixed imports this module
 
-    key = (str(base.device), tuple(base.flatten().tolist()))
+    key = (str(base.device), tuple(limbs.to_host(base.flatten()).tolist()))
     table = base_tables.get(key)
     if table is None:
         table = base_tables[key] = msm_fixed.build_tables(*doubling_chain(base))

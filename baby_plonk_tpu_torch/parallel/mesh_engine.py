@@ -37,7 +37,7 @@ import torch
 from ..protocol.poly import Basis
 from ..ops import srs
 from ..ops.dpoly import DPoly, _debug_asserts, pad_to
-from ..ops.limbs import FR, mont_mul
+from ..ops.limbs import FR, mont_mul, to_device, to_host
 from ..ops.msm_fixed import GROUP
 from ..ops.prover_kernels import _round3_consts, round3_combine, scalars
 from ..ops.torch_engine import TorchEngine
@@ -71,7 +71,7 @@ class MeshEngine(TorchEngine):
         position k1 m + k2 holds natural index k2 D + k1."""
         pair = self._perms.get(n)
         if pair is None:
-            nat_of_gath = torch.from_numpy(dntt.cyclic_perm(n, self.D)).to(self.device)
+            nat_of_gath = to_device(torch.from_numpy(dntt.cyclic_perm(n, self.D)), self.device)
             pair = self._perms[n] = (nat_of_gath, torch.argsort(nat_of_gath))
         return pair
 
@@ -228,5 +228,5 @@ class MeshEngine(TorchEngine):
         t = dntt._local_fourstep_dual([x[:, None] for x in tE], self.mesh)  # natural block order
         t = self.mesh.gather([_mm(x[:, 0], g) for x, g in zip(t, ginvpow)])
         if _debug_asserts():
-            assert not bool(t[:, 3 * n + 6 :].any()), "constraint polynomial not divisible by Z_H"
+            assert not bool(to_host(t[:, 3 * n + 6 :].any())), "constraint polynomial not divisible by Z_H"
         return DPoly(t[:, : 3 * n + 6].contiguous(), Basis.MONOMIAL)

@@ -20,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from ..fields import fr
+from ..utils.metrics import get_metrics
 from .assembly import PUBLIC, AssemblyEqn
 from .poly import Basis, Poly
 
@@ -71,7 +72,8 @@ class Program:
     def from_strs(lines: list[str], group_order: int) -> "Program":
         from .assembly import eq_to_assembly
 
-        return Program([eq_to_assembly(l) for l in lines], group_order)
+        with get_metrics().span("program.from_strs"):
+            return Program([eq_to_assembly(l) for l in lines], group_order)
 
     def common_preprocessed_input(self) -> CommonPreprocessedInput:
         """Cached on the program: the selector/σ polynomials are a pure
@@ -81,8 +83,9 @@ class Program:
         a prove-then-verify service pays the selector iNTTs once)."""
         cpi = getattr(self, "_cpi_cache", None)
         if cpi is None:
-            ql, qr, qm, qo, qc = self.make_gate_polynomials()
-            s1, s2, s3 = self.make_s_polynomials()
+            with get_metrics().span("program.preprocess"):
+                ql, qr, qm, qo, qc = self.make_gate_polynomials()
+                s1, s2, s3 = self.make_s_polynomials()
             cpi = CommonPreprocessedInput(
                 group_order=self.group_order,
                 ql=ql, qr=qr, qm=qm, qo=qo, qc=qc, s1=s1, s2=s2, s3=s3,

@@ -31,6 +31,7 @@ from .program import Program
 from .proof import Proof
 from .setup import Setup
 from .transcript import PlonkTranscript
+from ..utils.metrics import get_metrics
 
 Q = fr.Q
 
@@ -64,8 +65,6 @@ class Prover:
 
     def _intt(self, p):
         assert p.basis == Basis.LAGRANGE
-        from ..utils.metrics import get_metrics
-
         with get_metrics().span("prover.intt"):
             return self.engine.intt_poly(p)
 
@@ -73,8 +72,6 @@ class Prover:
         return self.engine.poly(values, basis)
 
     def _commit(self, p: Poly) -> G1:
-        from ..utils.metrics import get_metrics
-
         with get_metrics().span("prover.commit"):
             return self.engine.commit(self.setup, p)
 
@@ -82,8 +79,6 @@ class Prover:
         """Batch a round's commitments: every MSM dispatches before the
         single result fetch (engine.commit_many) — one host<->device
         round trip per round instead of one per polynomial."""
-        from ..utils.metrics import get_metrics
-
         with get_metrics().span("prover.commit"):
             return self.engine.commit_many(self.setup, ps)
 
@@ -93,50 +88,59 @@ class Prover:
         blinding: list[int] | None = None,
     ) -> Proof:
         """Produce a proof for ``witness``; optionally injectable blinding
-        (11 scalars, prover.rs:108-110) for deterministic tests."""
-        n = self.group_order
-        if blinding is None:
-            blinding = [secrets.randbelow(Q) for _ in range(11)]
-            mesh = getattr(self.engine, "mesh", None)
-            if mesh is not None:  # the processes of a mesh prove one proof: one draw for all
-                blinding = mesh.agree(blinding)
-        assert len(blinding) == 11
-        self.blinding = [b % Q for b in blinding]
-        self.witness = {k: v % Q for k, v in witness.items()}
+        (11 scalars, prover.rs:108-110) for deterministic tests. The spans
+        of one call carry its proof id (``utils.metrics.Metrics.proof``)."""
+        m = get_metrics()
+        with m.proof():
+            return self._prove(m, witness, blinding)
 
+    def _prove(self, m, witness, blinding) -> Proof:
+        n = self.group_order
         transcript = PlonkTranscript(b"plonk")
         ch = Challenges()
         self.ch = ch
 
-        # public-input polynomial: negated public witness values in the first
-        # rows, zero elsewhere (prover.rs:114-127)
-        public_vars = self.program.get_public_assignment()
-        pi_values = [(-self.witness[v]) % Q for v in public_vars]
-        pi_values += [0] * (n - len(pi_values))
-        self.public_input_poly = self._poly(pi_values, Basis.LAGRANGE)
+        with m.span("prover.prepare"):
+            if blinding is None:
+                blinding = [secrets.randbelow(Q) for _ in range(11)]
+                mesh = getattr(self.engine, "mesh", None)
+                if mesh is not None:  # the processes of a mesh prove one proof: one draw for all
+                    blinding = mesh.agree(blinding)
+            assert len(blinding) == 11
+            self.blinding = [b % Q for b in blinding]
+            self.witness = {k: v % Q for k, v in witness.items()}
 
-        from ..utils.metrics import get_metrics
+            # public-input polynomial: negated public witness values in the
+            # first rows, zero elsewhere (prover.rs:114-127)
+            public_vars = self.program.get_public_assignment()
+            pi_values = [(-self.witness[v]) % Q for v in public_vars]
+            pi_values += [0] * (n - len(pi_values))
+            self.public_input_poly = self._poly(pi_values, Basis.LAGRANGE)
 
-        m = get_metrics()
         with m.span("prover.round_1"):
             a_1, b_1, c_1 = self.round_1()
-        ch.beta, ch.gamma = transcript.round_1(a_1, b_1, c_1)
+        with m.span("prover.transcript"):
+            ch.beta, ch.gamma = transcript.round_1(a_1, b_1, c_1)
 
         with m.span("prover.round_2"):
             z_1 = self.round_2()
-        ch.alpha = transcript.round_2(z_1)
+        with m.span("prover.transcript"):
+            ch.alpha = transcript.round_2(z_1)
 
         with m.span("prover.round_3"):
             t_lo_1, t_mid_1, t_hi_1 = self.round_3()
-        ch.zeta = transcript.round_3(t_lo_1, t_mid_1, t_hi_1)
+        with m.span("prover.transcript"):
+            ch.zeta = transcript.round_3(t_lo_1, t_mid_1, t_hi_1)
 
         with m.span("prover.round_4"):
             evals = self.round_4()
-        ch.nu = transcript.round_4(*evals)
+        with m.span("prover.transcript"):
+            ch.nu = transcript.round_4(*evals)
 
         with m.span("prover.round_5"):
             w_zeta_1, w_zeta_omega_1 = self.round_5()
-        ch.mu = transcript.round_5(w_zeta_1, w_zeta_omega_1)
+        with m.span("prover.transcript"):
+            ch.mu = transcript.round_5(w_zeta_1, w_zeta_omega_1)
 
         return Proof(
             a_1=a_1, b_1=b_1, c_1=c_1, z_1=z_1,
@@ -164,9 +168,10 @@ class Prover:
                     vals[i] = w[name]
             return vals
 
-        a_values = col(lambda c: c.wires.L)
-        b_values = col(lambda c: c.wires.R)
-        c_values = col(lambda c: c.wires.O)
+        with get_metrics().span("prover.columns"):
+            a_values = col(lambda c: c.wires.L)
+            b_values = col(lambda c: c.wires.R)
+            c_values = col(lambda c: c.wires.O)
 
         b1, b2, b3, b4, b5, b6 = self.blinding[:6]
 

@@ -82,9 +82,11 @@ def _load_device_srs(path: str, powers: int):
 def _save_device_srs(path: str, pts, x_2: G2) -> None:
     """Write the cache file atomically: a file of this process's own, then
     ``os.replace``."""
+    from ..ops.limbs import to_host
+
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp.npz"
-    px, py, pz = (c.cpu().numpy() for c in pts)
+    px, py, pz = (to_host(c).numpy() for c in pts)
     np.savez(tmp, px=px, py=py, pz=pz, x2=np.frombuffer(_g2_bytes(x_2), dtype=np.uint8))
     os.replace(tmp, path)
 
@@ -116,6 +118,7 @@ class Setup:
         cannot be read or holds the wrong shapes is computed anew and
         overwritten)."""
         from ..ops import srs
+        from ..ops.limbs import to_device
 
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -126,7 +129,7 @@ class Setup:
         if loaded is not None:
             pts, x_2 = loaded
             setup = Setup(None, x_2, n_powers=powers)
-            setup.device_points[str(device)] = tuple(torch.from_numpy(c).to(device) for c in pts)
+            setup.device_points[str(device)] = tuple(to_device(torch.from_numpy(c), device) for c in pts)
             return setup
         setup = Setup(None, G2.generator() * tau, n_powers=powers)
         pts = setup.device_points[str(device)] = srs.powers_of_tau_device(powers, tau, device)

@@ -1,0 +1,189 @@
+"""The port's recorder of spans and counters (``baby_plonk_tpu_torch/utils/
+metrics.py``) on the CPU.
+
+A span keeps a record and opens a profiler range only while
+``torch.profiler`` records (or ``keep_records`` is set); every span of a
+prove carries that prove's id, inside its parent's interval; ``h2d_bytes``
+counts the bytes that go to the device and ``host_syncs`` the times the
+host waits for it, the same for every prove of one witness.
+
+The proves run on ``TorchEngine("cpu")`` at 8 gates with the commits' MSM
+replaced by the identity: its plain version takes seconds a commit here,
+and nothing the recorder does depends on the points.
+"""
+import os
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from baby_plonk_tpu_torch.circuits.library import mul_chain
+from baby_plonk_tpu_torch.ops import g1_vec
+from baby_plonk_tpu_torch.ops.limbs import FR
+from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+from baby_plonk_tpu_torch.protocol import Program, Prover, Setup
+from baby_plonk_tpu_torch.utils import metrics
+
+N = 8
+#: the spans this recorder's callers open besides the rounds, ``prover.intt`` and ``prover.commit``
+NEW_SPANS = ("prover.prepare", "prover.columns", "dpoly.from_ints", "prover.transcript", "program.from_strs",
+             "program.preprocess")
+
+
+class IdentityCommits(TorchEngine):
+    """Every commitment is the identity; everything around the MSM runs."""
+
+    def _commit_arrays(self, setup, scalars_raw):
+        return g1_vec.pidentity((len(scalars_raw),), self.device)
+
+
+def _prover():
+    lines, witness, _ = mul_chain(N, 1234567)
+    setup = Setup.generate_srs(N + 6, 0xDEADBEEF, cache=False)
+    return Prover(setup, Program.from_strs(lines, N), IdentityCommits("cpu")), witness
+
+
+def _ranges(prof) -> list[str]:
+    """The names of a profile's host events (``prof.events()`` takes 20 s here)."""
+    return [e.name() for e in prof.profiler.kineto_results.events()]
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """The program's set-up under a CPU profiler, a cold prove, then two
+    warm proves of the same witness under another. Returns the recorder's
+    records, the profiles' range names, and for each prove the ids its spans
+    carry, its slice of the records and the counters it added."""
+    m = metrics.get_metrics()
+    m.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as setup_prof:
+        prover, witness = _prover()
+    proves = []
+
+    def prove():
+        first, before = len(m.records), dict(m.counters)
+        prover.prove(witness, blinding=list(range(1, 12)))
+        added = {k: v - before.get(k, 0) for k, v in m.counters.items()}
+        proves.append(({r.proof for r in m.records[first:]}, slice(first, len(m.records)), added))
+
+    prove()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        prove()
+        prove()
+    records = list(m.records)
+    m.reset()
+    return records, _ranges(setup_prof) + _ranges(prof), proves
+
+
+def test_untraced_spans_keep_no_record_open_no_range_and_read_no_environment(monkeypatch):
+    reads, ranges = [], []
+
+    class Environ(dict):
+        def __getitem__(self, key):
+            reads.append(key)
+            return super().__getitem__(key)
+
+        def get(self, key, default=None):
+            reads.append(key)
+            return super().get(key, default)
+
+    m = metrics.get_metrics()
+    m.reset()
+    monkeypatch.setattr(metrics, "record_function", lambda name: ranges.append(name))
+    monkeypatch.setattr(os, "environ", Environ(os.environ))
+    with m.span("outer"), m.span("inner"):
+        pass
+    assert reads == []
+    monkeypatch.undo()
+    monkeypatch.setattr(metrics, "record_function", lambda name: ranges.append(name))
+    prover, witness = _prover()
+    prover.prove(witness, blinding=list(range(1, 12)))
+    assert not torch.autograd._profiler_enabled()
+    assert m.records == [] and ranges == []
+    assert {"outer", "inner", "prover.round_1", "prover.columns", "dpoly.from_ints"} <= set(m.durations)
+    m.reset()
+
+
+def test_keep_records_without_a_profiler(monkeypatch):
+    m = metrics.get_metrics()
+    m.reset()
+    monkeypatch.setattr(m, "keep_records", True)
+    with m.span("outer"):
+        with m.proof() as pid, m.span("inner"):
+            pass
+    (outer, inner) = m.records
+    assert (outer.name, outer.proof, outer.parent) == ("outer", None, None)
+    assert (inner.name, inner.proof, inner.parent) == ("inner", pid, 0)
+    m.reset()
+    assert m.records == [] and not m.durations and not m.counters
+
+
+def test_every_span_of_a_prove_carries_its_id(traced):
+    records, _, proves = traced
+    assert proves[0][0] == set()  # untraced
+    ids = [p[0] for p in proves[1:]]
+    assert all(len(i) == 1 and None not in i for i in ids)
+    assert len(set().union(*ids)) == 2
+    assert {r.proof for r in records[: proves[0][1].start]} == {None}  # set-up
+    assert {r.name for r in records[: proves[0][1].start]} == {"program.from_strs", "program.preprocess"}
+
+
+def test_children_lie_inside_their_parents(traced):
+    records, _, _ = traced
+    children = [r for r in records if r.parent is not None]
+    assert len(children) > 20
+    for r in children:
+        p = records[r.parent]
+        assert p.start <= r.start <= r.end <= p.end and p.proof == r.proof, (r, p)
+
+
+@pytest.mark.parametrize("name", NEW_SPANS)
+def test_each_new_span_is_a_record_and_a_range(traced, name):
+    records, ranges, _ = traced
+    kept = sum(r.name == name for r in records)
+    assert kept >= 1 and ranges.count(name) == kept
+
+
+def test_round_1_packs_its_columns_and_blinding_under_its_span(traced):
+    records, _, proves = traced
+    inside = records[proves[-1][1]]
+    round1 = [i for i, r in enumerate(records) if r.name == "prover.round_1" and r.proof in proves[-1][0]]
+    assert len(round1) == 1
+    packs = [r for r in inside if r.name == "dpoly.from_ints" and r.parent == round1[0]]
+    assert len(packs) == 6  # a, b, c and their three blinding polynomials
+    assert sum(r.name == "prover.transcript" for r in inside) == 5
+
+
+def test_two_proves_of_one_witness_count_the_same(traced):
+    _, _, proves = traced
+    warm = [p[2] for p in proves[1:]]
+    assert warm[0] == warm[1] and warm[0]["h2d_bytes"] > 0 and warm[0]["host_syncs"] > 0
+    assert proves[0][2]["h2d_bytes"] > warm[0]["h2d_bytes"]  # the cold prove also packs the key's caches
+
+
+@pytest.mark.parametrize("case, h2d_bytes, host_syncs", [
+    ("pack_raw 1", 64, 1),
+    ("pack_raw 37", 64 * 37, 1),
+    ("unpack_raw 37", 0, 1),
+    ("mont_scalar", 64, 1),
+    ("const", 64, 1),
+    ("const again", 0, 0),
+])
+def test_codec_counts(case, h2d_bytes, host_syncs):
+    packed = FR.pack_raw(list(range(37)), "cpu")
+    value = 0xC0FFEE00 + len(case)  # a constant no other test caches
+    calls = {
+        "pack_raw 1": lambda: FR.pack_raw([5], "cpu"),
+        "pack_raw 37": lambda: FR.pack_raw(list(range(37)), "cpu"),
+        "unpack_raw 37": lambda: FR.unpack_raw(packed),
+        "mont_scalar": lambda: FR.mont_scalar(7, "cpu"),
+        "const": lambda: FR.const(value, "cpu"),
+        "const again": lambda: FR.const(value, "cpu"),
+    }
+    if case == "const again":
+        FR.const(value, "cpu")
+    m = metrics.get_metrics()
+    m.reset()
+    calls[case]()
+    assert (m.counters.get("h2d_bytes", 0), m.counters.get("host_syncs", 0)) == (h2d_bytes, host_syncs)
+    m.reset()
