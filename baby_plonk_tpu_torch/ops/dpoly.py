@@ -97,7 +97,24 @@ class DPoly:
     @staticmethod
     def from_ints(values, basis: Basis, device) -> "DPoly":
         with get_metrics().span("dpoly.from_ints"):
-            return DPoly(FR.pack_mont([v % Q for v in values], device), basis)
+            return DPoly(FR.pack_mont(values, device), basis)
+
+    @staticmethod
+    def sparse(length: int, entries: dict, basis: Basis, device) -> "DPoly":
+        """``length`` values, zero but at ``entries`` (position -> int): zeros
+        made on the device and one upload of the k values (``FR.mont_scalars``),
+        copied into place a run of adjacent positions at a time."""
+        vals = torch.zeros((16, length), dtype=torch.int32, device=device)
+        pos = sorted(entries)
+        if pos:
+            assert 0 <= pos[0] and pos[-1] < length, "sparse entry outside the polynomial"
+            packed = FR.mont_scalars([entries[i] for i in pos], device)
+            start = 0
+            for k in range(1, len(pos) + 1):
+                if k == len(pos) or pos[k] != pos[k - 1] + 1:
+                    vals[:, pos[start] : pos[k - 1] + 1] = packed[:, start:k]
+                    start = k
+        return DPoly(vals, basis)
 
     @staticmethod
     def vanishing(n: int, device) -> "DPoly":

@@ -13,6 +13,10 @@ Contract (all Fr values are canonical Python ints on the boundary):
   ntt(values)                           monomial -> evaluations
   commit(setup, poly)                   KZG MSM commit -> G1
   grand_product(...)                    round-2 running product, n+1 values
+  sparse_poly(length, entries, basis)   a polynomial zero but at a few positions
+
+A device engine may add ``wire_columns(table, values)``, round 1's three
+columns gathered on the device; the prover builds them on the host without.
 """
 from __future__ import annotations
 
@@ -39,6 +43,14 @@ class HostEngine:
 
     def vanishing(self, n: int):
         return hostpoly.vanishing_poly(n)
+
+    def sparse_poly(self, length: int, entries: dict, basis):
+        """``length`` values, zero but at ``entries`` (position -> int); the
+        device engine uploads only the entries."""
+        values = [0] * length
+        for i, v in entries.items():
+            values[i] = v % Q
+        return hostpoly.Poly(values, basis)
 
     def intt_poly(self, p):
         """Lagrange poly object -> monomial poly object."""

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import operator
+from itertools import repeat
 
 import numpy as np
 import torch
@@ -114,8 +116,13 @@ class FieldSpec:
         """Montgomery form of one host int as (L, 1) (host-side conversion of
         a protocol scalar, as the JAX package's pack_mont of a scalar). Not
         cached: every proof brings new challenges."""
-        mont = x % self.modulus * self.R % self.modulus
-        return to_device(torch.from_numpy(ints_to_limbs([mont], self.L)), device)
+        return self.mont_scalars([x], device)
+
+    def mont_scalars(self, xs, device) -> torch.Tensor:
+        """Montgomery forms of a few host ints as (L, k), converted on the
+        host: one upload and no launch."""
+        p = self.modulus
+        return to_device(torch.from_numpy(ints_to_limbs([x % p * self.R % p for x in xs], self.L)), device)
 
     # -- tensor codecs ----------------------------------------------------------
 
@@ -123,9 +130,20 @@ class FieldSpec:
         """list[int] -> (L, n) limbs, no Montgomery scaling (MSM scalars)."""
         return to_device(torch.from_numpy(ints_to_limbs([x % self.modulus for x in xs], self.L)), device)
 
-    def pack_mont(self, xs, device) -> torch.Tensor:
-        """list[int] -> (L, n) Montgomery limbs (``to_mont`` on the device)."""
-        return to_mont(self, self.pack_raw(xs, device))
+    def pack_mont(self, xs, device, zeros: int = 0) -> torch.Tensor:
+        """list[int] -> (L, n + zeros) Montgomery limbs, the last ``zeros``
+        columns 0. Each value is reduced once and written by one
+        ``int.to_bytes``; the (n, L) 16-bit limbs go up as they lie, 2 L bytes
+        a value, and the widening, the transpose and ``to_mont`` run on the
+        device."""
+        n = len(xs)
+        out = torch.zeros((self.L, n + zeros), dtype=torch.int32, device=device)
+        if n:
+            buf = bytearray().join(
+                map(int.to_bytes, map(operator.mod, xs, repeat(self.modulus)), repeat(2 * self.L), repeat("little")))
+            out[:, :n] = to_device(torch.frombuffer(buf, dtype=torch.int16).view(n, self.L), device).T
+            out.bitwise_and_(MASK)
+        return to_mont(self, out)
 
     def unpack_raw(self, a: torch.Tensor) -> list[int]:
         return limbs_to_ints(to_host(a.reshape(self.L, -1)).numpy())

@@ -19,6 +19,7 @@ from ..fields import fr
 from ..protocol.poly import Basis
 
 from ..curves.g1 import G1
+from ..utils.metrics import get_metrics
 from . import g1_vec, limbs, msm, srs
 from .dpoly import DPoly, eval_many
 from .limbs import FR
@@ -53,6 +54,30 @@ class TorchEngine:
 
     def vanishing(self, n: int):
         return DPoly.vanishing(n, self.device)
+
+    def sparse_poly(self, length: int, entries: dict, basis):
+        return DPoly.sparse(length, entries, basis, self.device)
+
+    def wire_columns(self, table, values):
+        """Round 1's Lagrange columns a, b, c on the device from the witness
+        ``values`` in ``table.names`` order (``protocol/program.py::
+        WireTable``): one pack of the values with a zero slot after them,
+        then one gather a column by the table's index, uploaded once per
+        device. The spans keep the prover's names: the pack is round 1's
+        ``dpoly.from_ints``, the gather part of ``prover.columns``."""
+        m = get_metrics()
+        with m.span("dpoly.from_ints"):
+            wit = FR.pack_mont(values, self.device, zeros=1)
+        with m.span("prover.columns"):
+            key = str(self.device)
+            index = table.device_index.get(key)
+            if index is None:
+                index = table.device_index[key] = limbs.to_device(
+                    torch.from_numpy(table.index), self.device, torch.int64)
+            n = index.shape[-1]
+            cols = [DPoly(torch.gather(wit, 1, row.expand(16, n)), Basis.LAGRANGE) for row in index]
+            m.count("device_columns", len(cols))
+        return cols
 
     def _dpoly(self, p) -> DPoly:
         """``p`` on the engine's device: a host ``Poly`` is packed, a DPoly

@@ -17,7 +17,11 @@ Permutation layout preserved exactly:
 """
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass, field
+from itertools import chain, repeat
+
+import numpy as np
 
 from ..fields import fr
 from ..utils.metrics import get_metrics
@@ -60,6 +64,36 @@ class CommonPreprocessedInput:
     coset_rows: tuple | None = field(default=None, repr=False, compare=False)
 
 
+@dataclass
+class WireTable:
+    """Where each wire of the circuit reads the witness: the program's
+    variables in the order the column loop meets them (column L down every
+    row, then R, then O), and ``index``, (3, n) int32: for each column and
+    row the variable's position in ``names``, or ``len(names)`` (one zero
+    slot) for a ``None`` wire and the padding rows. Built once per program
+    (``Program.wire_table``)."""
+
+    names: list[str]
+    index: np.ndarray
+    #: str(device) -> ``index`` on that device (the engine's gather)
+    device_index: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def __post_init__(self):
+        self._get = operator.itemgetter(*self.names) if self.names else (lambda w: ())
+
+    def values(self, witness: dict) -> list[int]:
+        """The witness's values in ``names`` order, as given (unreduced).
+        Raises ``KeyError`` naming the first missing variable and the row
+        where the column loop first meets it."""
+        try:
+            got = self._get(witness)
+        except KeyError:
+            k, name = next((k, name) for k, name in enumerate(self.names) if name not in witness)
+            row = int(np.flatnonzero(self.index.ravel() == k)[0]) % self.index.shape[1]
+            raise KeyError(f"witness missing variable {name!r} (constraint row {row})") from None
+        return [got] if len(self.names) == 1 else list(got)
+
+
 class Program:
     def __init__(self, constraints: list[AssemblyEqn], group_order: int):
         assert len(constraints) <= group_order, (
@@ -92,6 +126,22 @@ class Program:
             )
             self._cpi_cache = cpi
         return cpi
+
+    def wire_table(self) -> WireTable:
+        """The circuit's ``WireTable``, cached on the program like the
+        preprocessed input: a function of the circuit alone."""
+        table = getattr(self, "_wire_table", None)
+        if table is None:
+            cs = self.constraints
+            cols = [[c.wires.L for c in cs], [c.wires.R for c in cs], [c.wires.O for c in cs]]
+            slot = dict.fromkeys(chain(*cols))
+            slot.pop(None, None)
+            slot = {name: k for k, name in enumerate(slot)}
+            index = np.full((3, self.group_order), len(slot), dtype=np.int32)
+            for j, names in enumerate(cols):
+                index[j, : len(cs)] = list(map(slot.get, names, repeat(len(slot))))
+            table = self._wire_table = WireTable(list(slot), index)
+        return table
 
     def make_gate_polynomials(self) -> tuple[Poly, Poly, Poly, Poly, Poly]:
         n = self.group_order
@@ -146,15 +196,18 @@ class Program:
 
     def get_public_assignment(self) -> list[str]:
         """Names of the public-input variables, which must occupy the first
-        rows (program.rs:172-194)."""
-        out: list[str] = []
-        no_more_allowed = False
-        for coeff in self.coeffs():
-            if PUBLIC in coeff:
-                if no_more_allowed:
-                    raise ValueError("Public var declarations must be at the top")
-                names = [k for k in coeff if k is not None and not k.startswith("$")]
-                out.append("".join(names))
-            else:
-                no_more_allowed = True
-        return out
+        rows (program.rs:172-194); found once a program, as the wire table."""
+        out = getattr(self, "_public", None)
+        if out is None:
+            out = []
+            no_more_allowed = False
+            for coeff in self.coeffs():
+                if PUBLIC in coeff:
+                    if no_more_allowed:
+                        raise ValueError("Public var declarations must be at the top")
+                    names = [k for k in coeff if k is not None and not k.startswith("$")]
+                    out.append("".join(names))
+                else:
+                    no_more_allowed = True
+            self._public = out
+        return list(out)

@@ -108,14 +108,14 @@ class Prover:
                     blinding = mesh.agree(blinding)
             assert len(blinding) == 11
             self.blinding = [b % Q for b in blinding]
-            self.witness = {k: v % Q for k, v in witness.items()}
+            self.witness = witness
 
             # public-input polynomial: negated public witness values in the
             # first rows, zero elsewhere (prover.rs:114-127)
             public_vars = self.program.get_public_assignment()
-            pi_values = [(-self.witness[v]) % Q for v in public_vars]
-            pi_values += [0] * (n - len(pi_values))
-            self.public_input_poly = self._poly(pi_values, Basis.LAGRANGE)
+            self.public_input_poly = self.engine.sparse_poly(
+                n, {i: -witness[v] for i, v in enumerate(public_vars)}, Basis.LAGRANGE
+            )
 
         with m.span("prover.round_1"):
             a_1, b_1, c_1 = self.round_1()
@@ -153,49 +153,58 @@ class Prover:
     # -- round 1 ------------------------------------------------------------------
 
     def round_1(self):
-        n = self.group_order
         w = self.witness
+        columns = getattr(self.engine, "wire_columns", None)
+        if columns is not None:
+            # device path: the witness goes up once, in the program's
+            # variable order, and the engine gathers a, b, c from it
+            table = self.program.wire_table()
+            with get_metrics().span("prover.columns"):
+                values = table.values(w)
+            self.a, self.b, self.c = columns(table, values)
+        else:
+            n = self.group_order
 
-        def col(wire_getter):
-            vals = [0] * n
-            for i, constraint in enumerate(self.program.constraints):
-                name = wire_getter(constraint)
-                if name is not None:
-                    if name not in w:
-                        raise KeyError(
-                            f"witness missing variable {name!r} (constraint row {i})"
-                        )
-                    vals[i] = w[name]
-            return vals
+            def col(wire_getter):
+                vals = [0] * n
+                for i, constraint in enumerate(self.program.constraints):
+                    name = wire_getter(constraint)
+                    if name is not None:
+                        if name not in w:
+                            raise KeyError(
+                                f"witness missing variable {name!r} (constraint row {i})"
+                            )
+                        vals[i] = w[name] % Q
+                return vals
 
-        with get_metrics().span("prover.columns"):
-            a_values = col(lambda c: c.wires.L)
-            b_values = col(lambda c: c.wires.R)
-            c_values = col(lambda c: c.wires.O)
+            with get_metrics().span("prover.columns"):
+                a_values = col(lambda c: c.wires.L)
+                b_values = col(lambda c: c.wires.R)
+                c_values = col(lambda c: c.wires.O)
+
+            self.a_values, self.b_values, self.c_values = a_values, b_values, c_values
+            self.a = self._poly(a_values, Basis.LAGRANGE)
+            self.b = self._poly(b_values, Basis.LAGRANGE)
+            self.c = self._poly(c_values, Basis.LAGRANGE)
 
         b1, b2, b3, b4, b5, b6 = self.blinding[:6]
-
-        self.a_values, self.b_values, self.c_values = a_values, b_values, c_values
-        self.a = self._poly(a_values, Basis.LAGRANGE)
-        self.b = self._poly(b_values, Basis.LAGRANGE)
-        self.c = self._poly(c_values, Basis.LAGRANGE)
-
-        # blinding polys are (b2 + b1 x), (b4 + b3 x), (b6 + b5 x), each
-        # multiplied by Z_H = x^n - 1 (prover.rs:241-247). The product has
-        # the closed form -b_lo - b_hi x + b_lo x^n + b_hi x^(n+1), so no
-        # polynomial multiplication (and no NTT) is needed.
-        def blind_zh(coeffs: list[int]):
-            lo = [(-c) % Q for c in coeffs]
-            return self._poly(
-                lo + [0] * (n - len(coeffs)) + coeffs, Basis.MONOMIAL
-            )
-
-        self.a_coeff = blind_zh([b2, b1]) + self._intt(self.a)
-        self.b_coeff = blind_zh([b4, b3]) + self._intt(self.b)
-        self.c_coeff = blind_zh([b6, b5]) + self._intt(self.c)
-        self._blind_zh = blind_zh
+        with get_metrics().span("prover.intt"):
+            a_c, b_c, c_c = self.engine.intt_polys([self.a, self.b, self.c])
+        self.a_coeff = self._blind_zh([b2, b1]) + a_c
+        self.b_coeff = self._blind_zh([b4, b3]) + b_c
+        self.c_coeff = self._blind_zh([b6, b5]) + c_c
 
         return tuple(self._commit_many([self.a_coeff, self.b_coeff, self.c_coeff]))
+
+    def _blind_zh(self, coeffs: list[int]):
+        """The blinding polynomial with ``coeffs`` (lowest first) times
+        Z_H = x^n - 1 (prover.rs:241-247, 359), in closed form:
+        -b_lo - b_hi x + b_lo x^n + b_hi x^(n+1), so no polynomial
+        multiplication (and no NTT) is needed."""
+        n = self.group_order
+        entries = {i: -c for i, c in enumerate(coeffs)}
+        entries.update({n + i: c for i, c in enumerate(coeffs)})
+        return self.engine.sparse_poly(n + len(coeffs), entries, Basis.MONOMIAL)
 
     # -- round 2 ------------------------------------------------------------------
 
@@ -319,9 +328,8 @@ class Prover:
 
         # cross-blinding (prover.rs:470-481)
         b10, b11 = self.blinding[9], self.blinding[10]
-        x_n = self._poly([0] * n + [1], Basis.MONOMIAL)
-        t_lo = t_lo + x_n * b10
-        t_mid = t_mid + x_n * b11 - b10
+        t_lo = t_lo + self.engine.sparse_poly(n + 1, {n: b10}, Basis.MONOMIAL)
+        t_mid = t_mid + self.engine.sparse_poly(n + 1, {n: b11}, Basis.MONOMIAL) - b10
         t_hi = t_hi - b11
 
         self.t_lo_coeff, self.t_mid_coeff, self.t_hi_coeff = t_lo, t_mid, t_hi
@@ -330,7 +338,7 @@ class Prover:
     def _l1_coeff(self):
         if getattr(self, "_l1_c", None) is None:
             n = self.group_order
-            self._l1_c = self._intt(self._poly([1] + [0] * (n - 1), Basis.LAGRANGE))
+            self._l1_c = self._intt(self.engine.sparse_poly(n, {0: 1}, Basis.LAGRANGE))
         return self._l1_c
 
     # -- round 4 ------------------------------------------------------------------

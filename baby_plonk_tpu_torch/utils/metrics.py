@@ -25,9 +25,12 @@ Counters (``count``), each counted where the work happens:
 - ``host_syncs``: each time the host waits for the device: a read of
   device data (``limbs.to_host``), and a blocking copy up from pageable
   memory, which PyTorch ends with a stream synchronize
-  (``c10::cuda::memcpy_and_sync``), so it waits for every launch before it.
+  (``c10::cuda::memcpy_and_sync``), so it waits for every launch before it;
+- ``device_columns``: round 1's wire columns gathered on the device, 3 a
+  prove on a device engine (``ops/torch_engine.py::wire_columns``), 0 where
+  the host engine builds them in Python.
 
-Both count whatever the device is, the CPU's included.
+All count whatever the device is, the CPU's included.
 """
 from __future__ import annotations
 

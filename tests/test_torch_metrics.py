@@ -18,7 +18,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from baby_plonk_tpu_torch.circuits.library import mul_chain
-from baby_plonk_tpu_torch.ops import g1_vec
+from baby_plonk_tpu_torch.ops import g1_vec, limbs
 from baby_plonk_tpu_torch.ops.limbs import FR
 from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
 from baby_plonk_tpu_torch.protocol import Program, Prover, Setup
@@ -53,18 +53,24 @@ def traced():
     """The program's set-up under a CPU profiler, a cold prove, then two
     warm proves of the same witness under another. Returns the recorder's
     records, the profiles' range names, and for each prove the ids its spans
-    carry, its slice of the records and the counters it added."""
+    carry, its slice of the records, the counters it added and the (shape,
+    dtype) of each host tensor it copied to the device; then the prover."""
     m = metrics.get_metrics()
     m.reset()
     with profile(activities=[ProfilerActivity.CPU]) as setup_prof:
         prover, witness = _prover()
     proves = []
+    to_device = limbs.to_device
 
     def prove():
-        first, before = len(m.records), dict(m.counters)
-        prover.prove(witness, blinding=list(range(1, 12)))
+        first, before, uploads = len(m.records), dict(m.counters), []
+        limbs.to_device = lambda host, *a, **k: uploads.append((tuple(host.shape), host.dtype)) or to_device(host, *a, **k)
+        try:
+            prover.prove(witness, blinding=list(range(1, 12)))
+        finally:
+            limbs.to_device = to_device
         added = {k: v - before.get(k, 0) for k, v in m.counters.items()}
-        proves.append(({r.proof for r in m.records[first:]}, slice(first, len(m.records)), added))
+        proves.append(({r.proof for r in m.records[first:]}, slice(first, len(m.records)), added, uploads))
 
     prove()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -72,7 +78,7 @@ def traced():
         prove()
     records = list(m.records)
     m.reset()
-    return records, _ranges(setup_prof) + _ranges(prof), proves
+    return records, _ranges(setup_prof) + _ranges(prof), proves, prover
 
 
 def test_untraced_spans_keep_no_record_open_no_range_and_read_no_environment(monkeypatch):
@@ -119,7 +125,7 @@ def test_keep_records_without_a_profiler(monkeypatch):
 
 
 def test_every_span_of_a_prove_carries_its_id(traced):
-    records, _, proves = traced
+    records, _, proves, _ = traced
     assert proves[0][0] == set()  # untraced
     ids = [p[0] for p in proves[1:]]
     assert all(len(i) == 1 and None not in i for i in ids)
@@ -129,9 +135,11 @@ def test_every_span_of_a_prove_carries_its_id(traced):
 
 
 def test_children_lie_inside_their_parents(traced):
-    records, _, _ = traced
+    records, _, _, _ = traced
     children = [r for r in records if r.parent is not None]
-    assert len(children) > 20
+    # ten a traced prove: round 1's two column spans, its pack, its iNTT and
+    # its commit; rounds 2 and 3's iNTT and commit; round 5's commit
+    assert len(children) == 20
     for r in children:
         p = records[r.parent]
         assert p.start <= r.start <= r.end <= p.end and p.proof == r.proof, (r, p)
@@ -139,23 +147,43 @@ def test_children_lie_inside_their_parents(traced):
 
 @pytest.mark.parametrize("name", NEW_SPANS)
 def test_each_new_span_is_a_record_and_a_range(traced, name):
-    records, ranges, _ = traced
+    records, ranges, _, _ = traced
     kept = sum(r.name == name for r in records)
     assert kept >= 1 and ranges.count(name) == kept
 
 
 def test_round_1_packs_its_columns_and_blinding_under_its_span(traced):
-    records, _, proves = traced
+    records, _, proves, prover = traced
     inside = records[proves[-1][1]]
     round1 = [i for i, r in enumerate(records) if r.name == "prover.round_1" and r.proof in proves[-1][0]]
     assert len(round1) == 1
-    packs = [r for r in inside if r.name == "dpoly.from_ints" and r.parent == round1[0]]
-    assert len(packs) == 6  # a, b, c and their three blinding polynomials
+    # the witness is packed once, between the ordered extraction and the
+    # gather, all three children of round 1; the blinding is made on the
+    # device (DPoly.sparse) and packs nothing
+    packs = [r for r in inside if r.name == "dpoly.from_ints"]
+    columns = [r for r in inside if r.name == "prover.columns"]
+    assert len(packs) == 1 and packs[0].parent == round1[0]
+    assert len(columns) == 2 and all(r.parent == round1[0] for r in columns)
+    assert columns[0].end <= packs[0].start and packs[0].end <= columns[1].start
     assert sum(r.name == "prover.transcript" for r in inside) == 5
+    # a warm prove uploads the witness once and otherwise a few scalars a
+    # call: as packed rows of 16 int16 limbs, 32 bytes a value, the witness
+    # and round 5's 15 coefficients; as int32 limb columns, 64 bytes a value,
+    # the public input 1, round 1's blinding 12, round 2's 4 constants and 6
+    # blinding, round 3's 6 constants, z's shift 1, the cross-blinding 2 + 2,
+    # round 4's point 1, round 5's constant 1, the debug check's point 1, two
+    # divisions by (x - z) 4 each and z - z_omega_bar's constant 1
+    V = len(prover.program.wire_table().names)
+    uploads = proves[-1][3]
+    assert [u for u in uploads if u[1] == torch.int16] == [((V, 16), torch.int16), ((15, 16), torch.int16)]
+    scalars = [shape for shape, dtype in uploads if dtype != torch.int16]
+    assert all(len(s) == 2 and s[0] == 16 and 1 <= s[1] <= 6 for s in scalars), scalars
+    assert sum(s[1] for s in scalars) == 46
+    assert proves[-1][2]["h2d_bytes"] == 32 * (V + 15) + 64 * 46
 
 
 def test_two_proves_of_one_witness_count_the_same(traced):
-    _, _, proves = traced
+    _, _, proves, _ = traced
     warm = [p[2] for p in proves[1:]]
     assert warm[0] == warm[1] and warm[0]["h2d_bytes"] > 0 and warm[0]["host_syncs"] > 0
     assert proves[0][2]["h2d_bytes"] > warm[0]["h2d_bytes"]  # the cold prove also packs the key's caches
