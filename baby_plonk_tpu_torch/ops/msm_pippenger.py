@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import get_metrics
 from . import g1_vec, kernels
 
 BITS = 255
@@ -301,9 +302,18 @@ def msm_pippenger(points, scalars, c: int | None = None, plan=None):
     """Full MSM of (24, n) x3 Montgomery points by (16, n) raw scalars;
     returns (X, Y, Z) limb vectors (24,). ``plan`` = (K, JOIN_K, L, BS)
     (default ``make_plan`` for the card). On a CUDA tensor: the sort (glue) and
-    ONE call of ``bpt_msm_pippenger``; ``launches`` counts those calls."""
+    ONE call of ``bpt_msm_pippenger``; ``launches`` counts those calls. Every
+    call, on any device, counts ``pippenger_msms`` and ``pippenger_points``
+    and runs inside the span ``msm.pippenger`` of size n (utils/metrics.py)."""
     n = points[0].shape[-1]
-    c = window_c(n) if c is None else c
+    m = get_metrics()
+    m.count("pippenger_msms")
+    m.count("pippenger_points", n)
+    with m.span("msm.pippenger", size=n):
+        return _msm_pippenger(points, scalars, n, window_c(n) if c is None else c, plan)
+
+
+def _msm_pippenger(points, scalars, n: int, c: int, plan):
     if kernels.on_cpu(*points, scalars):
         return g1_vec._to32(msm_pippenger_plain(points, scalars, c, plan))
     dev = kernels.check_cuda(*points, scalars)

@@ -9,10 +9,20 @@ should include its device work is opened with ``sync=True`` and waits for
 the card before it reads the clock.
 
 While ``torch.profiler`` records, or while ``keep_records`` is set, a span
-also appends a ``SpanRecord`` (name, proof id, parent, start, end) to
+also appends a ``SpanRecord`` (name, proof id, parent, start, end, size) to
 ``records`` and opens a ``torch.profiler.record_function`` range of its
 name, which puts it on the profiler's clock beside the device's intervals.
-Otherwise it keeps no record and opens no range.
+Otherwise it keeps no record and opens no range. ``size`` is what the
+caller passes as ``span(..., size=...)``, the call's count of elements, or
+None: a work count per call reads it.
+
+Spans of the ops layer with a size:
+
+- ``msm.pippenger``: each variable-base Pippenger MSM
+  (``ops/msm_pippenger.py::msm_pippenger``), size n, the points; under
+  ``prover.commit`` in a prove. Not synced: on the card it times the host's
+  part (the digits, the sort's launch, the plan, the scratch, the launch);
+  on the CPU the plain version's whole work.
 
 ``Prover.prove`` runs inside ``proof()``, which numbers the proofs of the
 process: the spans of a prove carry its id, spans outside one (set-up)
@@ -28,7 +38,11 @@ Counters (``count``), each counted where the work happens:
   (``c10::cuda::memcpy_and_sync``), so it waits for every launch before it;
 - ``device_columns``: round 1's wire columns gathered on the device, 3 a
   prove on a device engine (``ops/torch_engine.py::wire_columns``), 0 where
-  the host engine builds them in Python.
+  the host engine builds them in Python;
+- ``pippenger_msms`` and ``pippenger_points``: +1 and +n at each
+  variable-base Pippenger MSM over n points (``ops/msm_pippenger.py::
+  msm_pippenger``), 9 calls a prove on that commit path, 0 on the
+  fixed-base one.
 
 All count whatever the device is, the CPU's included.
 """
@@ -54,6 +68,8 @@ class SpanRecord:
     #: ``time.perf_counter`` seconds
     start: float
     end: float = 0.0
+    #: the call's count of elements (``span(..., size=...)``), or None
+    size: int | None = None
 
 
 class Metrics:
@@ -68,13 +84,14 @@ class Metrics:
         self._open: list[int] = []
 
     @contextlib.contextmanager
-    def span(self, name: str, sync: bool = False):
+    def span(self, name: str, sync: bool = False, size: int | None = None):
         rec = None
         if self.keep_records or torch.autograd._profiler_enabled():
             rng = record_function(name)
             rng.__enter__()
             rec = len(self.records)
-            self.records.append(SpanRecord(name, self.proof_id, self._open[-1] if self._open else None, 0.0))
+            self.records.append(SpanRecord(name, self.proof_id, self._open[-1] if self._open else None, 0.0,
+                                           size=size))
             self._open.append(rec)
         t0 = time.perf_counter()
         try:
