@@ -15,7 +15,7 @@ Contract (all Fr values are canonical Python ints on the boundary):
   grand_product(...)                    round-2 running product, n+1 values
   sparse_poly(length, entries, basis)   a polynomial zero but at a few positions
 
-A device engine may add ``wire_columns(table, values)``, round 1's three
+A device engine may add ``wire_columns(table, witness)``, round 1's three
 columns gathered on the device; the prover builds them on the host without.
 """
 from __future__ import annotations

@@ -136,11 +136,16 @@ class FieldSpec:
         ``int.to_bytes``; the (n, L) 16-bit limbs go up as they lie, 2 L bytes
         a value, and the widening, the transpose and ``to_mont`` run on the
         device."""
-        n = len(xs)
+        buf = bytearray().join(
+            map(int.to_bytes, map(operator.mod, xs, repeat(self.modulus)), repeat(2 * self.L), repeat("little")))
+        return self.upload_mont(buf, len(xs), device, zeros)
+
+    def upload_mont(self, buf, n: int, device, zeros: int = 0) -> torch.Tensor:
+        """(L, n + zeros) Montgomery limbs of the ``n`` values that ``buf``
+        (any writable buffer) holds, 2 L little-endian bytes each, already
+        reduced; the last ``zeros`` columns 0 (``pack_mont``'s upload)."""
         out = torch.zeros((self.L, n + zeros), dtype=torch.int32, device=device)
         if n:
-            buf = bytearray().join(
-                map(int.to_bytes, map(operator.mod, xs, repeat(self.modulus)), repeat(2 * self.L), repeat("little")))
             out[:, :n] = to_device(torch.frombuffer(buf, dtype=torch.int16).view(n, self.L), device).T
             out.bitwise_and_(MASK)
         return to_mont(self, out)

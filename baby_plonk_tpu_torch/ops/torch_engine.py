@@ -58,16 +58,32 @@ class TorchEngine:
     def sparse_poly(self, length: int, entries: dict, basis):
         return DPoly.sparse(length, entries, basis, self.device)
 
-    def wire_columns(self, table, values):
-        """Round 1's Lagrange columns a, b, c on the device from the witness
-        ``values`` in ``table.names`` order (``protocol/program.py::
-        WireTable``): one pack of the values with a zero slot after them,
-        then one gather a column by the table's index, uploaded once per
-        device. The spans keep the prover's names: the pack is round 1's
-        ``dpoly.from_ints``, the gather part of ``prover.columns``."""
+    def wire_columns(self, table, witness):
+        """Round 1's Lagrange columns a, b, c on the device from the
+        ``witness`` dict (``protocol/program.py::WireTable``): its values in
+        ``table.names`` order packed with a zero slot after them, then one
+        gather a column by the table's index, uploaded once per device.
+
+        A witness in the key order the table learned is read by one native
+        pass (``WireTable.packed``, counted in ``witness_order_hits``);
+        any other takes one lookup a name and ``FR.pack_mont``, and teaches
+        the table its order (``witness_order_misses``). The spans keep the
+        prover's names: the pass or the pack is round 1's
+        ``dpoly.from_ints``; the lookups and the gather, ``prover.columns``."""
         m = get_metrics()
         with m.span("dpoly.from_ints"):
-            wit = FR.pack_mont(values, self.device, zeros=1)
+            packed = table.packed(witness)
+            if packed is not None:
+                wit = FR.upload_mont(packed, len(packed), self.device, zeros=1)
+        if packed is not None:
+            m.count("witness_order_hits")
+        else:
+            m.count("witness_order_misses")
+            with m.span("prover.columns"):
+                values = table.values(witness)
+                table.learn(witness)
+            with m.span("dpoly.from_ints"):
+                wit = FR.pack_mont(values, self.device, zeros=1)
         with m.span("prover.columns"):
             key = str(self.device)
             index = table.device_index.get(key)

@@ -23,6 +23,7 @@ from itertools import chain, repeat
 
 import numpy as np
 
+from .. import native
 from ..fields import fr
 from ..utils.metrics import get_metrics
 from .assembly import PUBLIC, AssemblyEqn
@@ -71,12 +72,21 @@ class WireTable:
     row, then R, then O), and ``index``, (3, n) int32: for each column and
     row the variable's position in ``names``, or ``len(names)`` (one zero
     slot) for a ``None`` wire and the padding rows. Built once per program
-    (``Program.wire_table``)."""
+    (``Program.wire_table``).
+
+    The table also keeps the key order of the last witness it learned
+    (``learn``): every witness that one generator makes has the same keys in
+    the same order, so ``packed`` reads such a witness by one native pass
+    over the dict in its own order, checked key by key, instead of one
+    lookup a name. The values are read anew on every call."""
 
     names: list[str]
     index: np.ndarray
     #: str(device) -> ``index`` on that device (the engine's gather)
     device_index: dict = field(default_factory=dict, repr=False, compare=False)
+    #: (keys, slots): the learned witness key order, and for each key its
+    #: position in ``names`` (int32, -1 where no wire reads it)
+    order: tuple | None = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         self._get = operator.itemgetter(*self.names) if self.names else (lambda w: ())
@@ -92,6 +102,45 @@ class WireTable:
             row = int(np.flatnonzero(self.index.ravel() == k)[0]) % self.index.shape[1]
             raise KeyError(f"witness missing variable {name!r} (constraint row {row})") from None
         return [got] if len(self.names) == 1 else list(got)
+
+    def learn(self, witness: dict) -> None:
+        """Keep ``witness``'s key order for ``packed``: one dict lookup a
+        key. Called after ``values`` found every name; a witness that is not
+        a plain dict of ``str`` keys, or a process without the native
+        reader, leaves the order as it was."""
+        if type(witness) is not dict or native.witness_reader() is None:
+            return
+        keys = list(witness)
+        if not all(type(k) is str for k in keys):
+            return
+        pos = {name: k for k, name in enumerate(self.names)}
+        self.order = (keys, np.fromiter(map(pos.get, keys, repeat(-1)), np.int32, len(keys)))
+
+    def packed(self, witness: dict) -> np.ndarray | None:
+        """The witness's values in ``names`` order as (len(names), 32) uint8,
+        each reduced below Q and little-endian (``FR.pack_mont``'s bytes),
+        read by one native pass over the dict in its own order. None, with
+        nothing usable read, where ``witness`` is not a plain dict with the
+        learned keys in the learned order, or the native reader is missing. Values the pass leaves (negative, 2^256 or
+        more, not an int) are reduced here, as ``pack_mont`` does."""
+        order, read = self.order, native.witness_reader()
+        if order is None or read is None:
+            return None
+        keys, slots = order
+        n = len(self.names)
+        out = np.empty((n, 32), dtype=np.uint8)
+        flagged = np.empty(n, dtype=np.int32)
+        k = read(witness, keys, slots.ctypes.data, _Q_WORDS.ctypes.data, out.ctypes.data, flagged.ctypes.data)
+        if k < 0:
+            return None
+        for s in np.sort(flagged[:k]).tolist():
+            out[s] = np.frombuffer(int.to_bytes(witness[self.names[s]] % Q, 32, "little"), np.uint8)
+        return out
+
+
+# the modulus as the native reader takes it; it subtracts Q at most twice
+_Q_WORDS = np.frombuffer(Q.to_bytes(32, "little"), dtype="<u8").copy()
+assert 3 * Q > 1 << 256
 
 
 class Program:

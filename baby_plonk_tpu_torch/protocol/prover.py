@@ -158,10 +158,7 @@ class Prover:
         if columns is not None:
             # device path: the witness goes up once, in the program's
             # variable order, and the engine gathers a, b, c from it
-            table = self.program.wire_table()
-            with get_metrics().span("prover.columns"):
-                values = table.values(w)
-            self.a, self.b, self.c = columns(table, values)
+            self.a, self.b, self.c = columns(self.program.wire_table(), w)
         else:
             n = self.group_order
 

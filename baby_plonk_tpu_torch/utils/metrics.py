@@ -39,6 +39,11 @@ Counters (``count``), each counted where the work happens:
 - ``device_columns``: round 1's wire columns gathered on the device, 3 a
   prove on a device engine (``ops/torch_engine.py::wire_columns``), 0 where
   the host engine builds them in Python;
+- ``witness_order_hits`` and ``witness_order_misses``: +1 each time round
+  1's witness is read on a device engine, by the native pass over the dict
+  in the key order its program's wire table learned (a hit), or by one
+  lookup a name (a miss: another order, the first witness, no native
+  reader) (``ops/torch_engine.py::wire_columns``);
 - ``pippenger_msms`` and ``pippenger_points``: +1 and +n at each
   variable-base Pippenger MSM over n points (``ops/msm_pippenger.py::
   msm_pippenger``), 9 calls a prove on that commit path, 0 on the

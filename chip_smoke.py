@@ -1988,6 +1988,7 @@ def main():
             if "Compiling entry" in line or "stack frame" in line or "Used" in line:
                 print(f"  ptxas, {source}: {line.strip()}", flush=True)
     print(f"  native Keccak (transcript hashing) loaded: {native.available()}", flush=True)
+    print(f"  native witness reader (round 1) loaded: {native.witness_reader() is not None}", flush=True)
     phase("2 build", t)
 
     if "--msm-times" in sys.argv:

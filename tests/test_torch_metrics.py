@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from baby_plonk_tpu_torch import native
 from baby_plonk_tpu_torch.circuits.library import mul_chain
 from baby_plonk_tpu_torch.ops import g1_vec, limbs
 from baby_plonk_tpu_torch.ops.limbs import FR
@@ -135,11 +136,15 @@ def test_every_span_of_a_prove_carries_its_id(traced):
 
 
 def test_children_lie_inside_their_parents(traced):
-    records, _, _, _ = traced
+    records, _, proves, _ = traced
     children = [r for r in records if r.parent is not None]
-    # ten a traced prove: round 1's two column spans, its pack, its iNTT and
-    # its commit; rounds 2 and 3's iNTT and commit; round 5's commit
-    assert len(children) == 20
+    # nine a traced prove: round 1's pack (the native read of the witness in
+    # the order the cold prove taught), its gather, its iNTT and its commit;
+    # rounds 2 and 3's iNTT and commit; round 5's commit. Without the native
+    # reader round 1 also opens the lookups' column span and a second pack.
+    hits = sum(p[2].get("witness_order_hits", 0) for p in proves[1:])
+    assert hits == (2 if native.witness_reader() else 0)
+    assert len(children) == 2 * 9 + 2 * (2 - hits)
     for r in children:
         p = records[r.parent]
         assert p.start <= r.start <= r.end <= p.end and p.proof == r.proof, (r, p)
@@ -157,14 +162,18 @@ def test_round_1_packs_its_columns_and_blinding_under_its_span(traced):
     inside = records[proves[-1][1]]
     round1 = [i for i, r in enumerate(records) if r.name == "prover.round_1" and r.proof in proves[-1][0]]
     assert len(round1) == 1
-    # the witness is packed once, between the ordered extraction and the
-    # gather, all three children of round 1; the blinding is made on the
-    # device (DPoly.sparse) and packs nothing
-    packs = [r for r in inside if r.name == "dpoly.from_ints"]
-    columns = [r for r in inside if r.name == "prover.columns"]
-    assert len(packs) == 1 and packs[0].parent == round1[0]
-    assert len(columns) == 2 and all(r.parent == round1[0] for r in columns)
-    assert columns[0].end <= packs[0].start and packs[0].end <= columns[1].start
+    # the witness is read once by the native pass in the learned order, then
+    # gathered; without the native reader the pass returns at once and the
+    # lookups, the pack and the gather follow: all children of round 1, in
+    # that order. The blinding is made on the device (DPoly.sparse) and packs
+    # nothing
+    spans = [r for r in inside if r.name in ("dpoly.from_ints", "prover.columns")]
+    assert all(r.parent == round1[0] for r in spans)
+    assert all(a.end <= b.start for a, b in zip(spans, spans[1:]))
+    order = ["dpoly.from_ints", "prover.columns"]
+    hit = proves[-1][2].get("witness_order_hits", 0) == 1
+    assert hit == (native.witness_reader() is not None)
+    assert [r.name for r in spans] == (order if hit else order * 2)
     assert sum(r.name == "prover.transcript" for r in inside) == 5
     # a warm prove uploads the witness once and otherwise a few scalars a
     # call: as packed rows of 16 int16 limbs, 32 bytes a value, the witness

@@ -117,7 +117,7 @@ def test_the_gather_equals_the_host_loop(case):
     assert (table.index[:, len(program.constraints):] == len(table.names)).all()  # padding reads the zero slot
     m = get_metrics()
     m.reset()
-    cols = TorchEngine("cpu").wire_columns(table, table.values(witness))
+    cols = TorchEngine("cpu").wire_columns(table, witness)
     assert m.counters["device_columns"] == 3
     m.reset()
     assert [c.basis for c in cols] == [Basis.LAGRANGE] * 3
