@@ -1,34 +1,49 @@
-"""Compute-engine interface: the prover's hot paths behind one contract.
+"""Compute-engine interface: all that ``protocol/`` asks of an engine.
 
-Counterpart of ``baby_plonk_tpu/ops/engine.py``. Three implementations:
+Counterpart of ``baby_plonk_tpu/ops/engine.py``. Three implementations,
+each with the whole contract and byte-identical proofs:
   * HostEngine  — exact Python-int oracle (this module), which the port
     is held against;
   * TorchEngine — PyTorch tensors and this package's CUDA kernels
-    (ops/torch_engine.py), byte-identical proofs;
+    (ops/torch_engine.py);
   * MeshEngine  — TorchEngine sharded over a device mesh
-    (parallel/mesh_engine.py), byte-identical proofs.
+    (parallel/mesh_engine.py).
 
-Contract (all Fr values are canonical Python ints on the boundary):
-  intt(values)                          Lagrange -> monomial coefficients
-  ntt(values)                           monomial -> evaluations
-  commit(setup, poly)                   KZG MSM commit -> G1
-  grand_product(...)                    round-2 running product, n+1 values
-  sparse_poly(length, entries, basis)   a polynomial zero but at a few positions
+The contract: the only calls the prover and the verifier make (Fr values
+are canonical Python ints on the boundary; "poly" is the engine's own
+polynomial type, host ``Poly`` or device ``DPoly``, which share one
+interface):
+  name                                  key of the proving key's caches
+  poly(values, basis)                   a poly from ints
+  sparse_poly(length, entries, basis)   a poly zero but at a few positions
+  intt_poly(p) / intt_polys(ps)         Lagrange -> monomial
+  commit(setup, p) / commit_many(...)   KZG commits -> G1
+  eval_polys(polys, x)                  evaluations at one point -> ints
+  linear_combine(polys, coeffs, const)  sum_i coeffs[i] polys[i] + const
+  wire_columns(table, witness)          round 1: the Lagrange columns a, b, c
+  grand_product_poly(a, b, c, pk, ...)  round 2: (z, closing z_n as a
+                                        one-value poly)
+  round3_quotient(..., n, pk_cache)     round 3: t = constraints / Z_H
+  agree(values)                         the blinding every process uses
 
-A device engine may add ``wire_columns(table, witness)``, round 1's three
-columns gathered on the device; the prover builds them on the host without.
+The list-level ``intt``, ``ntt`` and ``grand_product`` are the JAX
+engine's methods, which the tests hold against JAX; no protocol code
+calls them.
 """
 from __future__ import annotations
 
 from ..fields import fr
-from ..curves import msm_host
 from ..protocol import poly as hostpoly
+from ..utils.metrics import get_metrics
 
 Q = fr.Q
 
 
 class HostEngine:
     name = "host"
+
+    def agree(self, values: list[int]) -> list[int]:
+        return values
 
     def intt(self, values: list[int]) -> list[int]:
         return hostpoly.i_ntt(values)
@@ -41,9 +56,6 @@ class HostEngine:
     def poly(self, values, basis):
         return hostpoly.Poly(list(values), basis)
 
-    def vanishing(self, n: int):
-        return hostpoly.vanishing_poly(n)
-
     def sparse_poly(self, length: int, entries: dict, basis):
         """``length`` values, zero but at ``entries`` (position -> int); the
         device engine uploads only the entries."""
@@ -51,6 +63,14 @@ class HostEngine:
         for i, v in entries.items():
             values[i] = v % Q
         return hostpoly.Poly(values, basis)
+
+    def wire_columns(self, table, witness):
+        """Round 1's Lagrange columns a, b, c: the witness's values in
+        ``table.names`` order (``WireTable.values``, which names a missing
+        variable) reduced, a zero slot after them, read by ``table.index``."""
+        with get_metrics().span("prover.columns"):
+            vals = [v % Q for v in table.values(witness)] + [0]
+            return [hostpoly.Poly([vals[k] for k in row], hostpoly.Basis.LAGRANGE) for row in table.index.tolist()]
 
     def intt_poly(self, p):
         """Lagrange poly object -> monomial poly object."""
@@ -117,6 +137,25 @@ class HostEngine:
         pg_inv = fr.batch_inv(pg[1:])
         z = [1] + [pf[i + 1] * pg_inv[i] % Q for i in range(n)]
         return z
+
+    def grand_product_poly(self, a, b, c, pk, beta, gamma, k1, k2):
+        """Round 2: (z as a Lagrange poly, the closing z_n as a one-value
+        poly) from ``grand_product`` over the Lagrange columns."""
+        n = len(a)
+        z = self.grand_product(a.values, b.values, c.values, pk.s1.values, pk.s2.values, pk.s3.values,
+                               fr.roots_of_unity(n), beta, gamma, k1, k2)
+        return hostpoly.Poly(z[:n], hostpoly.Basis.LAGRANGE), hostpoly.Poly(z[n:], hostpoly.Basis.LAGRANGE)
+
+    def round3_quotient(self, a, b, c, z, zw, s1, s2, s3, ql, qr, qm, qo, qc, pi, l1,
+                        beta, gamma, alpha, k1, k2, n, pk_cache=None):
+        """Round 3's quotient by polynomial products (prover.rs:370-468):
+        (gate + alpha perm + alpha^2 (z - 1) L1) / Z_H from the monomial
+        operands; ``pk_cache`` is the device engines' and unused here."""
+        gate = a * ql + b * qr + a * b * qm + c * qo + pi + qc
+        x = hostpoly.Poly([0, 1], hostpoly.Basis.MONOMIAL)  # the iNTT of the identity permutation w^i
+        perm = (a.rlc(x, beta, gamma) * b.rlc(x * k1, beta, gamma) * c.rlc(x * k2, beta, gamma)) * z - (
+            a.rlc(s1, beta, gamma) * b.rlc(s2, beta, gamma) * c.rlc(s3, beta, gamma)) * zw
+        return (gate + perm * alpha + (z - 1) * l1 * (alpha * alpha % Q)).divide_by_vanishing(n)
 
 
 _default_engine: object | None = None

@@ -1,6 +1,6 @@
-"""The port's compute engine: the engine contract of
-``baby_plonk_tpu/ops/engine.py`` (:10-15) plus the device hooks that
-``TpuEngine`` adds (``ops/tpu_engine.py:125-339``), on PyTorch tensors.
+"""The port's compute engine: the engine contract (``ops/engine.py``) on
+PyTorch tensors, as ``TpuEngine`` (``baby_plonk_tpu/ops/tpu_engine.py``)
+on JAX arrays.
 
 ``TorchEngine("cuda")`` runs every field, NTT and point operation as a
 launch of this package's CUDA kernels; ``TorchEngine("cpu")`` runs their
@@ -39,6 +39,9 @@ class TorchEngine:
             raise RuntimeError("TorchEngine('cuda'): no CUDA device is available")
         self._roots: dict[int, torch.Tensor] = {}
 
+    def agree(self, values: list[int]) -> list[int]:
+        return values
+
     # -- NTT ---------------------------------------------------------------------
 
     def intt(self, values: list[int]) -> list[int]:
@@ -51,9 +54,6 @@ class TorchEngine:
 
     def poly(self, values, basis):
         return DPoly.from_ints(list(values), basis, self.device)
-
-    def vanishing(self, n: int):
-        return DPoly.vanishing(n, self.device)
 
     def sparse_poly(self, length: int, entries: dict, basis):
         return DPoly.sparse(length, entries, basis, self.device)
@@ -208,8 +208,8 @@ class TorchEngine:
         return FR.unpack_mont(torch.cat([z, closing], dim=-1))
 
     def grand_product_poly(self, a, b, c, pk, beta, gamma, k1, k2):
-        """Round 2 on the device: the prover's Lagrange DPolys in, (DPoly z,
-        closing (16, 1) Montgomery) out; sigma columns packed once per pk."""
+        """Round 2 on the device: the prover's Lagrange DPolys in, (z, the
+        closing z_n) out as Lagrange DPolys; sigma columns packed once per pk."""
         n = len(a)
         cache = pk.sigma_lagrange
         key = (str(self.device), n)
@@ -221,4 +221,4 @@ class TorchEngine:
         z, closing = self._grand_product(
             a.vals, b.vals, c.vals, *sig, self._roots_mont(n), beta, gamma, k1, k2
         )
-        return DPoly(z, Basis.LAGRANGE), closing
+        return DPoly(z, Basis.LAGRANGE), DPoly(closing, Basis.LAGRANGE)

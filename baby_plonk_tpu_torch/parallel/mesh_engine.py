@@ -60,6 +60,10 @@ class MeshEngine(TorchEngine):
         self._r3_cyc: dict[int, tuple] = {}
         self._roots_sh: dict[int, list[torch.Tensor]] = {}
 
+    def agree(self, values: list[int]) -> list[int]:
+        """The processes of a mesh prove one proof: one draw for all."""
+        return self.mesh.agree(values)
+
     # -- layout helpers ----------------------------------------------------------
 
     def _can_shard(self, n: int) -> bool:
@@ -175,7 +179,7 @@ class MeshEngine(TorchEngine):
         cols = [self.mesh.shard(self._dpoly(p).vals) for p in (a, b, c)]
         z, closing = dscan.grand_product_shards(
             *cols, *sig, self._roots_sharded(n), beta, gamma, k1, k2, self.mesh)
-        return DPoly(self.mesh.gather(z), Basis.LAGRANGE), closing
+        return DPoly(self.mesh.gather(z), Basis.LAGRANGE), DPoly(closing, Basis.LAGRANGE)
 
     # -- round-3 quotient --------------------------------------------------------
 

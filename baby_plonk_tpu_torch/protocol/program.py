@@ -20,6 +20,7 @@ from __future__ import annotations
 import operator
 from dataclasses import dataclass, field
 from itertools import chain, repeat
+from typing import NamedTuple
 
 import numpy as np
 
@@ -44,6 +45,19 @@ def cell_label(group_order: int, column: int, row: int, _roots_cache={}) -> int:
     return roots[row] * column % Q
 
 
+class PreprocessedCoeffs(NamedTuple):
+    """The eight preprocessed polynomials in monomial form, on one engine."""
+
+    ql: object
+    qr: object
+    qm: object
+    qo: object
+    qc: object
+    s1: object
+    s2: object
+    s3: object
+
+
 @dataclass
 class CommonPreprocessedInput:
     group_order: int
@@ -55,14 +69,24 @@ class CommonPreprocessedInput:
     s1: Poly
     s2: Poly
     s3: Poly
-    #: engine name -> the 8 monomial polys [s1, s2, s3, ql, qr, qm, qo, qc]
-    #: (prover round 3 and the verifier's preprocessing share them)
+    #: engine name -> ``PreprocessedCoeffs`` (``coeffs``)
     coeff_cache: dict = field(default_factory=dict, repr=False, compare=False)
     #: (str(device), n) -> packed Lagrange sigma columns (TorchEngine round 2)
     sigma_lagrange: dict = field(default_factory=dict, repr=False, compare=False)
     #: ((4n, str(device)), rows): coset evaluations of the nine
     #: proof-independent rows (ops/prover_kernels.py round 3)
     coset_rows: tuple | None = field(default=None, repr=False, compare=False)
+
+    def coeffs(self, engine) -> PreprocessedCoeffs:
+        """The eight polynomials in monomial form on ``engine``: one batched
+        iNTT (the reference converts them one by one, prover.rs:374-397),
+        kept per engine name, so that prover round 3 and the verifier's
+        preprocessing share it."""
+        got = self.coeff_cache.get(engine.name)
+        if got is None:
+            lagrange = [getattr(self, f) for f in PreprocessedCoeffs._fields]
+            got = self.coeff_cache[engine.name] = PreprocessedCoeffs(*engine.intt_polys(lagrange))
+        return got
 
 
 @dataclass
@@ -162,8 +186,8 @@ class Program:
         """Cached on the program: the selector/σ polynomials are a pure
         function of the circuit, and sharing ONE CommonPreprocessedInput
         object between Prover and Verifier lets them share its derived
-        caches too (the 8 iNTT'd coefficient polys, ``coeff_cache`` —
-        a prove-then-verify service pays the selector iNTTs once)."""
+        caches too (the 8 iNTT'd coefficient polys, ``coeffs`` — a
+        prove-then-verify service pays the selector iNTTs once)."""
         cpi = getattr(self, "_cpi_cache", None)
         if cpi is None:
             with get_metrics().span("program.preprocess"):

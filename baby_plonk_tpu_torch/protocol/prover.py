@@ -15,9 +15,10 @@ Round map (reference lines):
   round 4  prover.rs:502-541   openings at zeta
   round 5  prover.rs:543-647   linearization r, W_zeta, W_zeta_omega; commit
 
-The heavy lifting (NTT, MSM, grand product) dispatches through an
-``engine`` so the same protocol logic runs on the host oracle or on the
-CUDA device (ops/engine.py; the default is ``TorchEngine("cuda")``).
+The heavy lifting (columns, NTT, MSM, grand product, quotient) is one
+call a step to an ``engine`` (the contract in ops/engine.py), so one
+path runs on the host oracle, on the CUDA device or over a mesh (the
+default is ``TorchEngine("cuda")``).
 """
 from __future__ import annotations
 
@@ -68,9 +69,6 @@ class Prover:
         with get_metrics().span("prover.intt"):
             return self.engine.intt_poly(p)
 
-    def _poly(self, values, basis):
-        return self.engine.poly(values, basis)
-
     def _commit(self, p: Poly) -> G1:
         with get_metrics().span("prover.commit"):
             return self.engine.commit(self.setup, p)
@@ -102,10 +100,7 @@ class Prover:
 
         with m.span("prover.prepare"):
             if blinding is None:
-                blinding = [secrets.randbelow(Q) for _ in range(11)]
-                mesh = getattr(self.engine, "mesh", None)
-                if mesh is not None:  # the processes of a mesh prove one proof: one draw for all
-                    blinding = mesh.agree(blinding)
+                blinding = self.engine.agree([secrets.randbelow(Q) for _ in range(11)])
             assert len(blinding) == 11
             self.blinding = [b % Q for b in blinding]
             self.witness = witness
@@ -153,37 +148,9 @@ class Prover:
     # -- round 1 ------------------------------------------------------------------
 
     def round_1(self):
-        w = self.witness
-        columns = getattr(self.engine, "wire_columns", None)
-        if columns is not None:
-            # device path: the witness goes up once, in the program's
-            # variable order, and the engine gathers a, b, c from it
-            self.a, self.b, self.c = columns(self.program.wire_table(), w)
-        else:
-            n = self.group_order
-
-            def col(wire_getter):
-                vals = [0] * n
-                for i, constraint in enumerate(self.program.constraints):
-                    name = wire_getter(constraint)
-                    if name is not None:
-                        if name not in w:
-                            raise KeyError(
-                                f"witness missing variable {name!r} (constraint row {i})"
-                            )
-                        vals[i] = w[name] % Q
-                return vals
-
-            with get_metrics().span("prover.columns"):
-                a_values = col(lambda c: c.wires.L)
-                b_values = col(lambda c: c.wires.R)
-                c_values = col(lambda c: c.wires.O)
-
-            self.a_values, self.b_values, self.c_values = a_values, b_values, c_values
-            self.a = self._poly(a_values, Basis.LAGRANGE)
-            self.b = self._poly(b_values, Basis.LAGRANGE)
-            self.c = self._poly(c_values, Basis.LAGRANGE)
-
+        # the witness goes to the engine once, read in the program's
+        # variable order, and the engine gathers a, b, c from it
+        self.a, self.b, self.c = self.engine.wire_columns(self.program.wire_table(), self.witness)
         b1, b2, b3, b4, b5, b6 = self.blinding[:6]
         with get_metrics().span("prover.intt"):
             a_c, b_c, c_c = self.engine.intt_polys([self.a, self.b, self.c])
@@ -206,42 +173,17 @@ class Prover:
     # -- round 2 ------------------------------------------------------------------
 
     def round_2(self):
-        n = self.group_order
-        beta, gamma = self.ch.beta, self.ch.gamma
         from ..config import get_config
 
-        gp_dev = getattr(self.engine, "grand_product_poly", None)
-        if gp_dev is not None:
-            # device-resident fast path: a/b/c stay on device, σ and the roots are
-            # cached packed, the single inversion runs on device — no
-            # O(n) host<->device int round trips
-            z_poly, closing = gp_dev(
-                self.a, self.b, self.c, self.pk, beta, gamma, K1, K2
-            )
-            if get_config().debug_asserts:
-                # sanity: full cycle returns to 1 (prover.rs:319)
-                from ..ops.limbs import FR
-
-                assert FR.unpack_mont(closing) == [1], "grand product does not close"
-            b7, b8, b9 = self.blinding[6:9]
-            self.z = z_poly
-            self.z_coeff = self._blind_zh([b9, b8, b7]) + self._intt(self.z)
-            return self._commit(self.z_coeff)
-
-        roots = fr.roots_of_unity(n)
-        a, b, c = self.a_values, self.b_values, self.c_values
-        s1, s2, s3 = self.pk.s1.values, self.pk.s2.values, self.pk.s3.values
-
-        z_values = self.engine.grand_product(
-            a, b, c, s1, s2, s3, roots, beta, gamma, K1, K2
+        # one engine call: on a device engine a, b, c stay there, sigma and
+        # the roots are cached there and the one inversion runs there
+        self.z, closing = self.engine.grand_product_poly(
+            self.a, self.b, self.c, self.pk, self.ch.beta, self.ch.gamma, K1, K2
         )
-        # sanity: full cycle returns to 1 (prover.rs:319)
         if get_config().debug_asserts:
-            assert z_values[-1] == 1, "grand product does not close"
-        z_values = z_values[:-1]
-
+            # sanity: full cycle returns to 1 (prover.rs:319)
+            assert closing.values == [1], "grand product does not close"
         b7, b8, b9 = self.blinding[6:9]
-        self.z = self._poly(z_values, Basis.LAGRANGE)
         # blinding poly b9 + b8 x + b7 x^2 (prover.rs:359), times Z_H in
         # closed form (see round_1)
         self.z_coeff = self._blind_zh([b9, b8, b7]) + self._intt(self.z)
@@ -254,69 +196,20 @@ class Prover:
         ch = self.ch
         beta, gamma, alpha = ch.beta, ch.gamma, ch.alpha
 
-        pk = self.pk
-        # one batched iNTT for all 8 preprocessed columns (the reference
-        # converts them one by one, prover.rs:374-397); fixed per proving
-        # key, so cached there (keyed by engine to keep host/device
-        # representations separate)
-        cache = pk.coeff_cache
-        ekey = getattr(self.engine, "name", "host")
-        if ekey not in cache:
-            cache[ekey] = self.engine.intt_polys(
-                [pk.s1, pk.s2, pk.s3, pk.ql, pk.qr, pk.qm, pk.qo, pk.qc]
-            )
-        s1_c, s2_c, s3_c, ql_c, qr_c, qm_c, qo_c, qc_c = cache[ekey]
-        self.s1_coeff, self.s2_coeff, self.s3_coeff = s1_c, s2_c, s3_c
-        self.ql_coeff, self.qr_coeff, self.qm_coeff = ql_c, qr_c, qm_c
-        self.qo_coeff, self.qc_coeff = qo_c, qc_c
-
+        pre = self.pre = self.pk.coeffs(self.engine)
         a_c, b_c, c_c, z_c = self.a_coeff, self.b_coeff, self.c_coeff, self.z_coeff
 
         self.pi_coeff = self._intt(self.public_input_poly)
         omega = fr.root_of_unity(n)
         z_omega_c = z_c.scale_domain(omega)
         self.z_omega_coeff = z_omega_c
-        l1_c = self._l1_coeff()
 
-        t_coeff = None
-        if hasattr(self.engine, "round3_quotient"):
-            # fused device path: one batched coset NTT + pointwise
-            # combination + pointwise Z_H division + one inverse NTT
-            t_coeff = self.engine.round3_quotient(
-                a_c, b_c, c_c, z_c, z_omega_c, s1_c, s2_c, s3_c,
-                ql_c, qr_c, qm_c, qo_c, qc_c, self.pi_coeff, l1_c,
-                beta, gamma, alpha, K1, K2, n,
-                pk_cache=self.pk,
-            )
-        if t_coeff is None:
-            gate = (
-                a_c * ql_c
-                + b_c * qr_c
-                + a_c * b_c * qm_c
-                + c_c * qo_c
-                + self.pi_coeff
-                + qc_c
-            )
-
-            # iNTT of the identity permutation values w^i is the polynomial x
-            x_poly = self._poly([0, 1], Basis.MONOMIAL)
-
-            perm_grand = (
-                a_c.rlc(x_poly, beta, gamma)
-                * b_c.rlc(x_poly * K1, beta, gamma)
-                * c_c.rlc(x_poly * K2, beta, gamma)
-            ) * z_c - (
-                a_c.rlc(s1_c, beta, gamma)
-                * b_c.rlc(s2_c, beta, gamma)
-                * c_c.rlc(s3_c, beta, gamma)
-            ) * z_omega_c
-
-            perm_first_row = (z_c - 1) * l1_c
-
-            all_constraints = (
-                gate + perm_grand * alpha + perm_first_row * (alpha * alpha % Q)
-            )
-            t_coeff = all_constraints.divide_by_vanishing(n)
+        t_coeff = self.engine.round3_quotient(
+            a_c, b_c, c_c, z_c, z_omega_c, pre.s1, pre.s2, pre.s3,
+            pre.ql, pre.qr, pre.qm, pre.qo, pre.qc, self.pi_coeff, self._l1_coeff(),
+            beta, gamma, alpha, K1, K2, n,
+            pk_cache=self.pk,
+        )
 
         # split into t_lo | t_mid | t_hi at n, 2n (prover.rs:649-659)
         t_lo = t_coeff.slice_coeffs(0, n)
@@ -347,7 +240,7 @@ class Prover:
         # PI(zeta), which round 5 needs at the same point
         polys = [
             self.a_coeff, self.b_coeff, self.c_coeff,
-            self.s1_coeff, self.s2_coeff, self.z_omega_coeff,
+            self.pre.s1, self.pre.s2, self.z_omega_coeff,
             self._l1_coeff(), self.pi_coeff,
         ]
         evals = self.engine.eval_polys(polys, zeta)
@@ -396,12 +289,11 @@ class Prover:
         alpha2 = alpha * alpha % Q
         nus = [pow(nu, i, Q) for i in range(6)]
 
+        pre = self.pre
         rows = [
-            self.qm_coeff, self.ql_coeff, self.qr_coeff, self.qo_coeff,
-            self.qc_coeff, z_c, self.s3_coeff,
+            pre.qm, pre.ql, pre.qr, pre.qo, pre.qc, z_c, pre.s3,
             self.t_lo_coeff, self.t_mid_coeff, self.t_hi_coeff,
-            self.a_coeff, self.b_coeff, self.c_coeff,
-            self.s1_coeff, self.s2_coeff,
+            self.a_coeff, self.b_coeff, self.c_coeff, pre.s1, pre.s2,
         ]
         coeffs = [
             a_bar * b_bar % Q, a_bar, b_bar, c_bar,

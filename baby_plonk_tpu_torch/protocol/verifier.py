@@ -19,7 +19,6 @@ from ..curves import msm_host
 from ..curves.g1 import G1
 from ..curves.g2 import G2
 from ..curves.pairing import multi_miller_loop, final_exponentiation
-from .poly import Basis, Poly
 from .program import Program
 from .proof import Proof
 from .setup import Setup
@@ -79,32 +78,12 @@ def preprocessed_input(setup: Setup, program: Program, engine=None):
     vpi = cache.get(key)
     if vpi is not None:
         return vpi
-    cpi = program.common_preprocessed_input()
-
-    # Reuse a Prover's coefficient cache when one exists for this engine
-    # (prover.py round_3 stores the 8 iNTT'd selector/σ polys on the SAME
-    # shared cpi object, order [s1,s2,s3,ql,qr,qm,qo,qc]) — a
-    # prove-then-verify service must not pay the 8 iNTTs twice.
-    ekey = getattr(engine, "name", "host")
-    ccache = cpi.coeff_cache
-    if ekey in ccache:
-        s1c, s2c, s3c, qlc, qrc, qmc, qoc, qcc = ccache[ekey]
-        monos = [qlc, qrc, qmc, qoc, qcc, s1c, s2c, s3c]
-    else:
-        # one batched 8-wide iNTT + 8 commits + ONE device round trip
-        # (the device engine's commit_many) instead of 8 x (intt + commit
-        # + sync)
-        lag = [cpi.ql, cpi.qr, cpi.qm, cpi.qo, cpi.qc, cpi.s1, cpi.s2, cpi.s3]
-        monos = engine.intt_polys(
-            [engine.poly(p.values, Basis.LAGRANGE) for p in lag]
-        )
-        qlc, qrc, qmc, qoc, qcc, s1c, s2c, s3c = monos
-        ccache[ekey] = [s1c, s2c, s3c, qlc, qrc, qmc, qoc, qcc]
-    ql, qr, qm, qo, qc, s1, s2, s3 = engine.commit_many(setup, monos)
+    # the proving key's coefficients, shared with a prover of this program on
+    # this engine, then 8 commits with ONE device round trip (commit_many)
+    coeffs = program.common_preprocessed_input().coeffs(engine)
+    points = engine.commit_many(setup, coeffs)
     vpi = VerifierPreprocessedInput(
-        ql_1=ql, qr_1=qr, qm_1=qm, qo_1=qo, qc_1=qc,
-        s1_1=s1, s2_1=s2, s3_1=s3,
-        x_2=setup.x_2,
+        **{f"{name}_1": pt for name, pt in zip(coeffs._fields, points)}, x_2=setup.x_2
     )
     cache[key] = vpi
     return vpi

@@ -1,7 +1,9 @@
 """The port end to end at n = 8 on the CPU: byte-identical proofs with the
 port's exact host engine, the port's verifier engine accepts them and
-rejects a wrong public input; plus the engine's guards. Tolerance: exact
-(integers and bytes)."""
+rejects a wrong public input; every engine has the whole engine contract
+(ops/engine.py) and the device engine's round steps equal the host
+engine's; plus the engine's guards. Tolerance: exact (integers and
+bytes)."""
 import pytest
 import torch
 
@@ -9,7 +11,10 @@ from baby_plonk_tpu_torch.fields import fr
 from baby_plonk_tpu_torch.ops.engine import HostEngine
 from baby_plonk_tpu_torch.ops.srs import setup_points
 from baby_plonk_tpu_torch.ops.torch_engine import TorchEngine
+from baby_plonk_tpu_torch.parallel.mesh import make_mesh
+from baby_plonk_tpu_torch.parallel.mesh_engine import MeshEngine
 from baby_plonk_tpu_torch.protocol import Program, Prover, Setup, Verifier
+from baby_plonk_tpu_torch.protocol.prover import K1, K2
 from baby_plonk_tpu_torch.protocol.poly import Basis, Poly
 
 from torch_port_util import field_ints, one_torch_thread  # noqa: F401  (fixture)
@@ -17,6 +22,9 @@ from torch_port_util import field_ints, one_torch_thread  # noqa: F401  (fixture
 CIRCUIT = ["e public", "c <== a * b + b", "e <== c * d"]
 WITNESS = {"a": 3, "b": 4, "c": 16, "d": 5, "e": 80}
 BLINDING = list(range(1, 12))
+#: what ``protocol/`` calls on an engine (the contract in ops/engine.py)
+CONTRACT = ("poly", "sparse_poly", "intt_poly", "intt_polys", "commit", "commit_many", "eval_polys",
+            "linear_combine", "wire_columns", "grand_product_poly", "round3_quotient", "agree")
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +48,23 @@ def test_port_verifier_accepts_and_rejects(proved):
     assert not Verifier(setup, program, proof, engine=engine).verify([81])
 
 
-def test_engine_contract_ops_match_host():
+@pytest.fixture(scope="module")
+def host_rounds():
+    """A HostEngine prover after a prove at n = 16, for its round operands."""
+    setup = Setup.generate_srs(16 + 6, tau=101, cache=False)
+    prover = Prover(setup, Program.from_strs(CIRCUIT, 16), engine=HostEngine())
+    prover.prove(WITNESS, blinding=BLINDING)
+    return prover
+
+
+def _trimmed(p) -> list[int]:
+    values = list(p.values)
+    while values and values[-1] == 0:
+        values.pop()
+    return values
+
+
+def test_engine_contract_ops_match_host(host_rounds):
     engine, host = TorchEngine("cpu"), HostEngine()
     vals = field_ints(31, fr.Q, 16)
     assert engine.ntt(vals) == host.ntt(vals)
@@ -49,6 +73,38 @@ def test_engine_contract_ops_match_host():
     cols = [field_ints(32 + i, fr.Q, 16) for i in range(6)]
     args = (*cols, roots, 5, 7, 2, 3)
     assert engine.grand_product(*args) == host.grand_product(*args)
+    # round 1: the columns of a witness with a value above Q and a negative one
+    prover = host_rounds
+    table = prover.program.wire_table()
+    witness = dict(WITNESS, a=3 + fr.Q, b=4 - 2 * fr.Q)
+    got, want = engine.wire_columns(table, witness), host.wire_columns(table, witness)
+    assert [(p.basis, p.values) for p in got] == [(p.basis, p.values) for p in want]
+    assert [p.values[:3] for p in want] == [[80, 3, 16], [0, 4, 5], [0, 16, 80]]
+    # round 2 over columns that do not close, and over the prove's, which do
+    for abc in (cols[:3], [p.values for p in (prover.a, prover.b, prover.c)]):
+        gp = (prover.pk, 5, 7, K1, K2)
+        z, closing = engine.grand_product_poly(*(engine.poly(v, Basis.LAGRANGE) for v in abc), *gp)
+        hz, hclosing = host.grand_product_poly(*(host.poly(v, Basis.LAGRANGE) for v in abc), *gp)
+        assert (z.basis, z.values) == (hz.basis, hz.values) and len(z) == 16
+        assert closing.values == hclosing.values
+    assert hclosing.values == [1]
+    # round 3 on the prove's operands
+    pre, ch = prover.pre, prover.ch
+    r3 = (prover.a_coeff, prover.b_coeff, prover.c_coeff, prover.z_coeff, prover.z_omega_coeff,
+          pre.s1, pre.s2, pre.s3, pre.ql, pre.qr, pre.qm, pre.qo, pre.qc, prover.pi_coeff, prover._l1_coeff(),
+          ch.beta, ch.gamma, ch.alpha, K1, K2, 16)
+    t = engine.round3_quotient(*r3, pk_cache=None)
+    assert t.basis == Basis.MONOMIAL and _trimmed(t) == _trimmed(host.round3_quotient(*r3, pk_cache=None))
+
+
+@pytest.mark.parametrize("kind", ["host", "torch", "mesh"])
+def test_every_engine_has_the_whole_contract(kind):
+    engine = {"host": HostEngine, "torch": lambda: TorchEngine("cpu"),
+              "mesh": lambda: MeshEngine(make_mesh(2, device="cpu"))}[kind]()
+    assert engine.name == kind
+    missing = [m for m in CONTRACT if not callable(getattr(engine, m, None))]
+    assert missing == []
+    assert engine.agree([1, fr.Q - 1]) == [1, fr.Q - 1]
 
 
 def test_engine_packs_host_polys():

@@ -198,6 +198,25 @@ def test_two_proves_of_one_witness_count_the_same(traced):
     assert proves[0][2]["h2d_bytes"] > warm[0]["h2d_bytes"]  # the cold prove also packs the key's caches
 
 
+def test_the_host_engine_opens_round_1s_column_span_and_counts_no_device_work(monkeypatch):
+    """``HostEngine.wire_columns`` opens ``prover.columns`` once under round
+    1, as the device engines do; nothing goes to a device or waits for one."""
+    from baby_plonk_tpu_torch.ops.engine import HostEngine
+
+    m = metrics.get_metrics()
+    m.reset()
+    monkeypatch.setattr(m, "keep_records", True)
+    prover, witness = _prover()
+    prover.engine = HostEngine()
+    prover.prove(witness, blinding=list(range(1, 12)))
+    records = list(m.records)
+    counters = dict(m.counters)
+    m.reset()
+    (round1,) = [i for i, r in enumerate(records) if r.name == "prover.round_1"]
+    assert [r.parent for r in records if r.name == "prover.columns"] == [round1]
+    assert not {"h2d_bytes", "host_syncs", "device_columns"} & set(counters)
+
+
 @pytest.mark.parametrize("case, h2d_bytes, host_syncs", [
     ("pack_raw 1", 64, 1),
     ("pack_raw 37", 64 * 37, 1),

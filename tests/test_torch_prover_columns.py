@@ -1,7 +1,7 @@
-"""Round 1's columns on the device (``Program.wire_table``,
-``TorchEngine.wire_columns``) and the polynomials made from a few scalars
-(``DPoly.sparse``, ``engine.sparse_poly``), held against the host engine's
-loops on the CPU.
+"""Round 1's columns (``Program.wire_table``, each engine's
+``wire_columns``) and the polynomials made from a few scalars
+(``DPoly.sparse``, ``engine.sparse_poly``), held on the CPU against plain
+loops over the constraints.
 
 Proofs of ``TorchEngine("cpu")`` are compared byte for byte with
 ``HostEngine``'s under the same blinding. Both commit through the host MSM
@@ -80,7 +80,7 @@ def _proofs(program, witness):
 
 
 def _host_columns(program, witness):
-    """Round 1's three columns by the host engine's loop."""
+    """Round 1's three columns by a loop over the constraints' wires."""
     n = program.group_order
     cols = [[0] * n for _ in range(3)]
     for i, c in enumerate(program.constraints):
@@ -122,6 +122,9 @@ def test_the_gather_equals_the_host_loop(case):
     m.reset()
     assert [c.basis for c in cols] == [Basis.LAGRANGE] * 3
     assert [c.values for c in cols] == _host_columns(program, witness)
+    host = HostEngine().wire_columns(table, witness)
+    assert [(c.basis, c.values) for c in host] == [(c.basis, c.values) for c in cols]
+    assert "device_columns" not in m.counters
 
 
 @pytest.mark.parametrize("engine", [HostEngine, HostCommits])

@@ -6,7 +6,7 @@ with ``FR.pack_mont``.
 Each case teaches a fresh program's wire table a key order, then hands
 ``TorchEngine("cpu").wire_columns`` witnesses and compares the bytes it
 uploads with those the lookup path uploads for the same witness (the
-native reader switched off), the columns with the host engine's loop, and
+native reader switched off), the columns with a plain loop, and
 the counters ``witness_order_hits`` / ``witness_order_misses`` with the
 path each read should take. One prove is compared byte for byte with
 ``HostEngine``'s. The native cases skip only where the library cannot be
