@@ -223,12 +223,15 @@ def msm_section(dev, rng, msm_log2: int, host_log2: int, iters: int, bitserial: 
     full, rest = tabs.launch_groups(msm_n)
     G = full * (tabs.chunk // msm_fixed.GROUP) + rest
     windows = msm_fixed.windows_for(G, dev)
+    lane_groups = msm_fixed.groups_per_lane(1, G, dev)
     padded = torch.zeros((16, 1, msm_fixed.GROUP * G), dtype=torch.int32, device=dev)
     padded[:, 0, :msm_n] = sc
-    bound_ms, bound_by = roofline.bound(*roofline.horner_work(padded, G, windows))
+    bound_ms, bound_by = roofline.bound(*roofline.horner_work(padded, G, windows, lane_groups,
+                                                              tabs.chunk // msm_fixed.GROUP))
     out["msm_bound_s"] = bound_ms / 1e3
     log(f"fixed-base MSM 2^{msm_log2}: median {out['msm_s'] * 1e3:.4f} ms of {iters} "
-        f"({msm_n / out['msm_s']:.4e} points/s); Horner launch of {G} groups, W = {windows}: bound "
+        f"({msm_n / out['msm_s']:.4e} points/s); Horner launch of {G} groups, W = {windows}, "
+        f"K = {lane_groups}: bound "
         f"{bound_ms:.4f} ms ({bound_by}; H100 SXM peaks at 700 W)")
 
     host_pts = g1_vec.points_from_device(tuple(c[:, :host_n] for c in pts))

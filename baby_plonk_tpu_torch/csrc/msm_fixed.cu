@@ -18,22 +18,29 @@
 // identity (entry 0, or a subset that cancels) is the off-curve marker (0, 0).
 //
 // Bound of the Horner loop on this card: operations. A Horner step is a
-// doubling and a mixed addition, 19 Fq products on the integer multiply-add
-// pipe, against 96 bytes of table. Before the pipe, the length of one lane's
-// dependent chain binds: 255 steps of about 21 us each, whatever the number
-// of lanes, until the card's 50,000 resident lanes are filled.
+// doubling and K mixed additions, 8 + 11 K Fq products on the integer
+// multiply-add pipe (utils/roofline.py::horner_work), against 96 K bytes of
+// table. Before the pipe, the length of one lane's dependent chain binds:
+// 255 steps, whatever the number of lanes, until the card's lanes are
+// filled.
 //
 // Design of the Horner loop: the 255 bits are cut into W windows of S =
-// ceil(255 / W) bits, and a lane is (scalar set, window, group): it runs its
-// window's steps, MSB first, acc = 2 acc + T[g][bits of the 8 scalars], with
-// acc in registers (g1.cuh inlines the formulas). The lanes of a (set,
-// window) are summed by the addition tree, and bpt_msm_join runs the short
-// Horner over the window sums, S doublings and an addition a window, one
-// thread a set: that serial tail is the price of the W-fold shorter chains.
-// W = 1 is the unsplit loop. A lane loads one 16-bit limb of its 8 scalars
-// per 16 steps (two 16-byte loads) and cuts the step's 8-bit index from
-// registers; it skips the (0, 0) marker (the mixed addition is not complete
-// for an identity operand). Bit 255 of a canonical Fr scalar is 0.
+// ceil(255 / W) bits, and a lane is (scalar set, window, slice), a slice
+// being up to K groups of one chunk (the chunk's slots are its slices,
+// rounded up to a power of two where K > 1; a slot past them stores the
+// identity). A lane runs its window's steps, MSB first, acc = 2 acc +
+// sum_k T[g_k][bits of group g_k's 8 scalars], with acc in registers (g1.cuh
+// inlines the formulas): the doubling is shared by the K groups, since
+// sum_g sum_b 2^b T_g[idx_g(b)] = sum_b 2^b sum_g T_g[idx_g(b)], and the
+// additions are exact in any order (the mixed addition is complete in acc).
+// The lanes of a (set, window) are summed by the addition tree, and
+// bpt_msm_join runs the short Horner over the window sums, S doublings and
+// an addition a window, one thread a set: that serial tail is the price of
+// the W-fold shorter chains. W = 1 is the unsplit loop, K = 1 a lane a
+// group. W > 1 where the lanes do not fill the card, K > 1 where they
+// overfill it (ops/msm_fixed.py::windows_for, groups_per_lane). A lane skips
+// index 0 and the (0, 0) marker (the mixed addition is not complete for an
+// identity operand). Bit 255 of a canonical Fr scalar is 0.
 //
 // The table build (once per SRS) does the reference's work: 247 complete
 // additions a group (one a subset of two or more points; the identity and
@@ -269,51 +276,121 @@ normalize_tables_kernel(const uint32_t* __restrict__ zs, const uint32_t* __restr
   }
 }
 
+// bits 4q .. 4q + 3 of each of 8 16-bit limbs -> word q of their step
+// indices: byte i holds bit 4q + i of limb j at bit j. A nibble's 4 bits
+// spread to the 4 bytes by one product (its shifted copies do not overlap).
+__device__ __forceinline__ uint32_t step_indices(const uint32_t limb[GROUP], int q) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < GROUP; j++) word |= (((limb[j] >> (4 * q)) & 0xFu) * 0x204081u & 0x01010101u) << j;
+  return word;
+}
+
+constexpr int HORNER_THREADS = 128;
+constexpr int MAX_LANE_GROUPS = 16;
+
+// The packed entry (x, y) of ``table`` at ``idx``: six 16-byte loads.
+__device__ __forceinline__ void get_entry(uint32_t qx[12], uint32_t qy[12], const uint32_t* table, uint32_t idx) {
+  const uint4* e = reinterpret_cast<const uint4*>(table + idx * ENTRY);
+#pragma unroll
+  for (int j = 0; j < 3; j++) {
+    const uint4 vx = __ldg(e + j), vy = __ldg(e + 3 + j);
+    qx[4 * j] = vx.x, qx[4 * j + 1] = vx.y, qx[4 * j + 2] = vx.z, qx[4 * j + 3] = vx.w;
+    qy[4 * j] = vy.x, qy[4 * j + 1] = vy.y, qy[4 * j + 2] = vy.z, qy[4 * j + 3] = vy.w;
+  }
+}
+
 // packed tables (Gt, 256, 24); scalars (16, P, 8G) raw limbs; out
-// (24, P, W, G) x3. Lane = ((p W + w) G + g) runs bits [w S, min((w+1) S, 255)).
-__global__ void __launch_bounds__(128)
+// (24, P, W, L) x3, L = G / gc chunks of Lc slots and the rest's slots. A
+// chunk of m groups (gc, or the rest's G mod gc) has M = ceil(m / K)
+// slices: slice s holds its groups s, s + M, s + 2 M, ... (at most K), in
+// slot c Lc + s of chunk c. Threads [0, P W R), R the slices of a (set,
+// window), are the lanes, t = (p W + w) R + slice, each running bits
+// [w S, min((w+1) S, 255)); the threads after them store the identity into
+// the slots past the slices, so a wave holds no idle thread between lanes.
+// The 32 lanes of a warp read 32 consecutive groups' tables at each of
+// their K additions, as at K = 1, and load their scalars coalesced (slices
+// of consecutive groups, a span K times wider, measured within 1% of it).
+//
+// SLICED = (K > 1). At K = 1 a lane holds its group's 8 scalar limbs in
+// registers, cuts each step's index from them and loads the step's entry
+// before the doubling, which hides the load: 167 registers, 3 blocks an SM.
+// At K > 1 the step indices are staged in shared memory (16 bytes a group
+// of the lane's slice, (K, 4, 128) words) and each group's entry is loaded
+// after the doubling, just before its addition: 232 registers, 2 blocks an
+// SM (ops/msm_fixed.py::SLICED_LANES_PER_SM), which add as fast as 3 at
+// K = 1 do; held to 3 blocks, it spills and runs 10-20% slower.
+template <bool SLICED>
+__global__ void __launch_bounds__(HORNER_THREADS, SLICED ? 2 : 3)
 msm_fixed_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ scalars,
-                 int64_t P, int64_t G, int W, int S, int32_t* ox, int32_t* oy, int32_t* oz) {
-  const int64_t lane = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t lanes = P * W * G;
-  if (lane >= lanes) return;
-  const int64_t g = lane % G;
-  const int w = (int)((lane / G) % W);
-  const int64_t p = lane / (G * W);
-  const int64_t sstride = P * G * GROUP;  // scalar limb stride
-  const int32_t* sc = scalars + (p * G + g) * GROUP;
-  const uint32_t* table = packed + g * (int64_t)(NB * ENTRY);
-  const int lo = w * S;
-  const int hi = min(lo + S, NBITS);
+                 int64_t P, int64_t G, int W, int S, int K, int64_t gc, int64_t Lc, int64_t L,
+                 int32_t* ox, int32_t* oy, int32_t* oz) {
+  extern __shared__ uint32_t step_words[];
+  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int64_t lanes = P * W * L;
+  if (t >= lanes) return;
+  const int64_t full = G / gc, Rc = (gc + K - 1) / K, Rr = (G - full * gc + K - 1) / K;
+  const int64_t R = full * Rc + Rr;
   G1P acc;
   g1_identity(acc);
+  if (t >= P * W * R) {  // pad q of its (set, window): after the slices of a chunk, then of the rest
+    const int64_t pad = t - P * W * R, per = L - R, q = pad % per, cp = Lc - Rc;
+    const int64_t slot = q < full * cp ? q / cp * Lc + Rc + q % cp : full * Lc + Rr + (q - full * cp);
+    g1_store(ox, oy, oz, pad / per * L + slot, lanes, acc);
+    return;
+  }
+  const int64_t u = t / R, r = t % R;  // u = p W + w
+  const int64_t c = r / Rc < full ? r / Rc : full, s = r - c * Rc;
+  const int64_t m = c < full ? gc : G - full * gc, M = c < full ? Rc : Rr;
+  const int n = (int)((m - s + M - 1) / M);
+  const int64_t out = SLICED ? u * L + c * Lc + s : t;  // at K = 1 a slot is a group: t
+  const int w = (int)(u % W);
+  const int64_t sstride = P * G * GROUP;  // scalar limb stride
+  const int32_t* sc = scalars + (u / W * G + c * gc + s) * GROUP;
+  const uint32_t* table = packed + (c * gc + s) * (int64_t)(NB * ENTRY);
+  const int lo = w * S;
+  const int hi = min(lo + S, NBITS);
+  uint32_t qx[12], qy[12];
   uint32_t limb[GROUP];
-  int held = -1;  // which 16-bit limb of the 8 scalars the registers hold
+  uint32_t* words = step_words + threadIdx.x;  // word (k, q) at (4 k + q) HORNER_THREADS
+  int held = -1;  // which 16-bit limb of the scalars the registers or shared words hold
 #pragma unroll 1
   for (int bit = hi - 1; bit >= lo; bit--) {
     if ((bit >> 4) != held) {
       held = bit >> 4;
-      const uint4* src = reinterpret_cast<const uint4*>(sc + held * sstride);
-      const uint4 s0 = __ldg(src), s1 = __ldg(src + 1);
-      limb[0] = s0.x, limb[1] = s0.y, limb[2] = s0.z, limb[3] = s0.w;
-      limb[4] = s1.x, limb[5] = s1.y, limb[6] = s1.z, limb[7] = s1.w;
-    }
-    const int sh = bit & 15;
-    uint32_t idx = 0;
+#pragma unroll 1
+      for (int k = 0; k < (SLICED ? n : 1); k++) {
+        const uint4* src = reinterpret_cast<const uint4*>(sc + held * sstride + k * M * GROUP);
+        const uint4 s0 = __ldg(src), s1 = __ldg(src + 1);
+        limb[0] = s0.x, limb[1] = s0.y, limb[2] = s0.z, limb[3] = s0.w;
+        limb[4] = s1.x, limb[5] = s1.y, limb[6] = s1.z, limb[7] = s1.w;
+        if (SLICED) {
 #pragma unroll
-    for (int j = 0; j < GROUP; j++) idx |= ((limb[j] >> sh) & 1u) << j;
-    const uint4* e = reinterpret_cast<const uint4*>(table + idx * ENTRY);
-    uint32_t qx[12], qy[12];
-#pragma unroll
-    for (int k = 0; k < 3; k++) {
-      const uint4 vx = __ldg(e + k), vy = __ldg(e + 3 + k);
-      qx[4 * k] = vx.x, qx[4 * k + 1] = vx.y, qx[4 * k + 2] = vx.z, qx[4 * k + 3] = vx.w;
-      qy[4 * k] = vy.x, qy[4 * k + 1] = vy.y, qy[4 * k + 2] = vy.z, qy[4 * k + 3] = vy.w;
+          for (int q = 0; q < 4; q++) words[(4 * k + q) * HORNER_THREADS] = step_indices(limb, q);
+        }
+      }
     }
+    if (!SLICED) {
+      const int sh = bit & 15;
+      uint32_t idx = 0;
+#pragma unroll
+      for (int j = 0; j < GROUP; j++) idx |= ((limb[j] >> sh) & 1u) << j;
+      get_entry(qx, qy, table, idx);
+      g1_double(acc);
+      if (!(is_zero<Fq>(qx) && is_zero<Fq>(qy))) g1_add_mixed(acc, qx, qy);
+      continue;
+    }
+    const int wq = (bit & 15) >> 2, sh = 8 * (bit & 3);
     g1_double(acc);
-    if (!(is_zero<Fq>(qx) && is_zero<Fq>(qy))) g1_add_mixed(acc, qx, qy);
+#pragma unroll 1
+    for (int k = 0; k < n; k++) {
+      const uint32_t idx = (words[(4 * k + wq) * HORNER_THREADS] >> sh) & 0xFFu;
+      if (idx == 0) continue;
+      get_entry(qx, qy, table + k * M * (NB * ENTRY), idx);
+      if (!(is_zero<Fq>(qx) && is_zero<Fq>(qy))) g1_add_mixed(acc, qx, qy);
+    }
   }
-  g1_store(ox, oy, oz, lane, lanes, acc);
+  g1_store(ox, oy, oz, out, lanes, acc);
 }
 
 // window sums (24, P, W) x3 -> (24, P) x3: sum_w 2^(w S) window_w, one
@@ -362,12 +439,21 @@ extern "C" int bpt_msm_build_tables(const void* px, const void* py, const void* 
 }
 
 extern "C" int bpt_msm_fixed(const void* packed, const void* scalars, long long P, long long G,
-                             int W, int S, void* ox, void* oy, void* oz, void* stream) {
-  if (W < 1 || S < 1 || (long long)W * S < NBITS) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  msm_fixed_kernel<<<blocks_for(P * W * G, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)packed, (const int32_t*)scalars, P, G, W, S, (int32_t*)ox, (int32_t*)oy,
-      (int32_t*)oz);
+                             int W, int S, int K, long long gc, long long Lc, long long L, void* ox,
+                             void* oy, void* oz, void* stream) {
+  if (W < 1 || S < 1 || (long long)W * S < NBITS || K < 1 || K > MAX_LANE_GROUPS || gc < 1 || Lc < 1 ||
+      Lc * K < gc)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = blocks_for(P * W * L, HORNER_THREADS);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (K == 1)
+    msm_fixed_kernel<false><<<blocks, HORNER_THREADS, 0, s>>>(
+        (const uint32_t*)packed, (const int32_t*)scalars, P, G, W, S, K, gc, Lc, L, (int32_t*)ox,
+        (int32_t*)oy, (int32_t*)oz);
+  else
+    msm_fixed_kernel<true><<<blocks, HORNER_THREADS, (size_t)K * 4 * HORNER_THREADS * sizeof(uint32_t), s>>>(
+        (const uint32_t*)packed, (const int32_t*)scalars, P, G, W, S, K, gc, Lc, L, (int32_t*)ox,
+        (int32_t*)oy, (int32_t*)oz);
   return (int)cudaGetLastError();
 }
 

@@ -60,7 +60,7 @@ _SIGNATURES = {
     "bpt_g1_tree": [_P] * 3 + [_I] * 9 + [_P] * 5,
     "bpt_msm_bitserial": [_P] * 4 + [_I, ctypes.c_int] + [_P] * 4,
     "bpt_msm_build_tables": [_P, _P, _P, _I] + [_P] * 5,
-    "bpt_msm_fixed": [_P, _P, _I, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
+    "bpt_msm_fixed": [_P, _P, _I, _I, ctypes.c_int, ctypes.c_int, ctypes.c_int, _I, _I, _I, _P, _P, _P, _P],
     "bpt_msm_join": [_P, _P, _P, _I, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
     "bpt_powers_of_tau": [_P, _P, _I, _P, _P, _P, _P],
     "bpt_msm_pippenger": [_P] * 3 + [_I, _P, _P, ctypes.c_int] + [_I] * 4 + [_P, _I] + [_P] * 4,

@@ -10,14 +10,20 @@ as the (0, 0) marker. ``unpack_tables`` gives the JAX package's layout,
 two (24, G, 256) limb arrays.
 
 A commit cuts the 255 scalar bits into W windows of S = ceil(255 / W) bits.
-A lane is (scalar set, window, group) and runs its window's Horner steps,
-MSB first, acc = 2 acc + T[g][bits of the group's 8 scalars]; the lanes of
-each (set, window) are tree-reduced over the groups (2^14-point chunks, and
-a ragged rest rounded up to a power of two, combined as
+A lane is (scalar set, window, slice), a slice being up to K groups of one
+chunk (``lane_slots``), and runs its window's Horner steps, MSB first,
+acc = 2 acc + sum_k T[g_k][bits of group g_k's 8 scalars]: one doubling a
+step for the K groups, since sum_g sum_b 2^b T_g[idx_g(b)] =
+sum_b 2^b sum_g T_g[idx_g(b)]. K = 1 is a lane a group. The lanes of each
+(set, window) are tree-reduced over the slices of each chunk (2^14 points,
+and a ragged rest rounded up to a power of two, combined as
 ``msm._combine_partials``, baby_plonk_tpu/ops/msm.py:101-116); the W window
 sums are joined by a Horner over the windows, S doublings and an addition
 each. W = 1 is the unsplit loop of the JAX package. The launch is sized to
-the scalars: groups past the longest scalar set are not run.
+the scalars: groups past the longest scalar set are not run. W and K come
+from the launch's shape: windows where the lanes do not fill the card,
+groups a lane where they overfill it (``windows_for``,
+``groups_per_lane``).
 
 Kernels (csrc/msm_fixed.cu): ``build_tables`` (build, one inversion a
 group, normalization; counterpart of ``_build_tables``,
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import get_metrics
 from . import g1_vec, kernels, limbs, srs
 
 FQ = limbs.FQ
@@ -48,6 +55,13 @@ MAX_WINDOWS = 16
 #: lanes the Horner kernel keeps resident on one SM: 3 blocks of 128 threads
 #: at its 167 registers a thread (__launch_bounds__(128, 3) in csrc/msm_fixed.cu)
 LANES_PER_SM = 384
+#: lanes the Horner kernel keeps resident on one SM where a lane sums K > 1
+#: groups: 2 blocks of 128 at its 232 registers (__launch_bounds__(128, 2);
+#: held to 3 blocks, it spills and runs 10-20% slower)
+SLICED_LANES_PER_SM = 256
+#: most groups one Horner lane sums at a bit (its step indices take 2 KB of a
+#: block's shared memory a group: 32 KB at 16)
+MAX_LANE_GROUPS = 16
 
 
 def _pow2_ceil(n: int) -> int:
@@ -155,18 +169,80 @@ def window_bits(windows: int) -> int:
     return -(-NBITS // windows)
 
 
+def _sms(device) -> int:
+    """Multiprocessors of the card; 0 on the CPU, where nothing runs side
+    by side."""
+    device = torch.device(device)
+    return torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 0
+
+
 def windows_for(lanes: int, device) -> int:
     """Windows for a commit of ``lanes`` = sets x groups lanes: doubled until
     the card's resident lanes are filled once, at most ``MAX_WINDOWS``. On
-    the CPU nothing runs side by side: one window."""
-    device = torch.device(device)
-    if device.type != "cuda":
+    the CPU one window."""
+    resident = _sms(device) * LANES_PER_SM
+    if not resident:
         return 1
-    resident = torch.cuda.get_device_properties(device).multi_processor_count * LANES_PER_SM
     w = 1
     while w < MAX_WINDOWS and lanes * w * 2 <= resident:
         w *= 2
     return w
+
+
+def lane_groups_for(lanes: int, sms: int) -> int:
+    """Groups a lane for ``lanes`` = sets x groups on ``sms`` multiprocessors:
+    1 where they fit the resident lanes at once (``windows_for`` then splits
+    the bits instead, or there is nothing to gain); over them, the K that
+    makes the fewest whole waves of the K > 1 kernel's resident lanes
+    (``SLICED_LANES_PER_SM``) times one lane's work a step, a doubling and
+    K mixed additions (the first such K)."""
+    from ..utils.roofline import DOUBLE_MADS, FQ_MUL, MIXED_MULS
+
+    if not sms or lanes <= sms * LANES_PER_SM:
+        return 1
+    wave = sms * SLICED_LANES_PER_SM
+    return min(range(2, MAX_LANE_GROUPS + 1),
+               key=lambda k: -(-lanes // (k * wave)) * (DOUBLE_MADS + k * FQ_MUL * MIXED_MULS))
+
+
+def groups_per_lane(sets: int, groups: int, device) -> int:
+    """K, the groups one Horner lane sums at a bit, for a launch of ``sets``
+    scalar sets over ``groups`` groups (``lane_groups_for`` the card). 1 on
+    the CPU."""
+    return lane_groups_for(sets * groups, _sms(device))
+
+
+def lane_slots(groups: int, lane_groups: int, chunk_groups: int) -> tuple[int, int]:
+    """(slots of a whole chunk, slots of the rest) of a launch over ``groups``
+    groups in chunks of ``chunk_groups``: a chunk of m groups, and the rest,
+    has M = ceil(m / K) slices, K = ``lane_groups``, one lane a slice; slice
+    s holds the chunk's groups s, s + M, s + 2 M, ... (at most K). Where
+    K > 1 the slots of a chunk are its slices rounded up to a power of two,
+    so that the group tree halves them; a slot past the slices holds the
+    identity. At K = 1 a slot is a group."""
+    full, rest = divmod(groups, chunk_groups)
+    fit = (lambda m: m) if lane_groups == 1 else _pow2_ceil
+    return fit(-(-chunk_groups // lane_groups)), fit(-(-rest // lane_groups)) if rest else 0
+
+
+def _slot_groups(groups: int, lane_groups: int, chunk_groups: int, device):
+    """(first group, groups, stride between them) of every lane slot, (L,)
+    int64 each; 0 groups on a slot past its chunk's slices."""
+    per_chunk, rest_slots = lane_slots(groups, lane_groups, chunk_groups)
+    full = groups // chunk_groups
+    slot = torch.arange(full * per_chunk + rest_slots, device=device)
+    chunk = torch.clamp(slot // per_chunk, max=full)
+    s = slot - chunk * per_chunk
+    m = torch.clamp(groups - chunk * chunk_groups, max=chunk_groups)  # the chunk's groups
+    stride = -(-m // lane_groups)
+    count = torch.where(s < stride, -(-(m - s) // stride), 0)
+    return chunk * chunk_groups + s, count, stride
+
+
+def _lanes_run(groups: int, lane_groups: int, chunk_groups: int) -> int:
+    """Lanes of a (set, window): the slots that hold at least one group."""
+    full, rest = divmod(groups, chunk_groups)
+    return full * -(-chunk_groups // lane_groups) + -(-rest // lane_groups)
 
 
 def _table_index(scalars, bit: int):
@@ -180,61 +256,77 @@ def _table_index(scalars, bit: int):
     return (b << shifts).sum(-1)
 
 
-def _entry_limbs(packed, idx):
-    """Entries ``idx`` (P, W, G) of groups 0..G-1 -> (qx, qy), (24, P, W, G)
-    int64 limbs."""
-    G = idx.shape[-1]
-    groups = torch.arange(G, device=packed.device)
-    w = packed[groups, idx].to(torch.int64) & 0xFFFFFFFF  # (P, W, G, 24)
+def _entry_limbs(packed, groups, idx):
+    """Entries ``idx`` (P, W, L) of groups ``groups`` (L,) -> (qx, qy),
+    (24, P, W, L) int64 limbs."""
+    w = packed[groups, idx].to(torch.int64) & 0xFFFFFFFF  # (P, W, L, 24)
     limbs = torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(*idx.shape, 2 * ENTRY).movedim(-1, 0)
     return limbs[:24], limbs[24:]
 
 
-def msm_fixed_plain(packed, scalars, windows: int = 1):
+def msm_fixed_plain(packed, scalars, windows: int = 1, lane_groups: int = 1, chunk_groups: int | None = None):
     """Plain windowed Horner loop: packed tables (Gt, 256, 24), scalars
-    (16, P, 8G) raw, G <= Gt -> per-lane projective partials (24, P, W, G),
-    int64. Lane (p, w, g) runs bits [w S, min((w + 1) S, 255)), MSB first; a
-    step past bit 254 doubles the identity, which leaves it limb for limb."""
+    (16, P, 8G) raw, G <= Gt -> per-lane projective partials (24, P, W, L),
+    int64, L the ``lane_slots`` of G groups in chunks of ``chunk_groups``
+    (default G) at K = ``lane_groups``. Lane (p, w, slot) runs bits
+    [w S, min((w + 1) S, 255)), MSB first: a doubling, then the entries of
+    its slice's groups in their order, the (0, 0) marker skipped. A step
+    past bit 254 doubles the identity, which leaves it limb for limb."""
     S = window_bits(windows)
     P, G = scalars.shape[1], scalars.shape[2] // GROUP
+    first, count, stride = _slot_groups(G, lane_groups, chunk_groups or max(G, 1), packed.device)
     sc = scalars.to(torch.int64)
-    acc = g1_vec.pidentity((P, windows, G), packed.device, torch.int64)
+    acc = g1_vec.pidentity((P, windows, first.shape[0]), packed.device, torch.int64)
     for s in range(S - 1, -1, -1):
-        idx = torch.stack([_table_index(sc, w * S + s) for w in range(windows)], dim=1)
-        qx, qy = _entry_limbs(packed, idx)
+        idx = torch.stack([_table_index(sc, w * S + s) for w in range(windows)], dim=1)  # (P, W, G)
         acc = g1_vec.pdouble_plain(acc)
-        added = g1_vec.padd_mixed_plain(acc, qx, qy)
-        marker = (qx == 0).all(0) & (qy == 0).all(0)  # (0, 0) = identity
-        acc = g1_vec.pselect(marker, acc, added)
+        for k in range(lane_groups):
+            g = torch.clamp(first + k * stride, max=G - 1)
+            qx, qy = _entry_limbs(packed, g, idx[..., g])
+            added = g1_vec.padd_mixed_plain(acc, qx, qy)
+            skip = ((qx == 0).all(0) & (qy == 0).all(0)) | (count <= k)  # (0, 0) = identity
+            acc = g1_vec.pselect(skip, acc, added)
     return acc
 
 
-def msm_fixed_horner(packed, scalars, windows: int = 1):
-    """Per-lane Horner partials (24, P, W, G) of P scalar sets (16, P, 8G)
+def msm_fixed_horner(packed, scalars, windows: int = 1, lane_groups: int | None = None,
+                     chunk_groups: int | None = None):
+    """Per-lane Horner partials (24, P, W, L) of P scalar sets (16, P, 8G)
     against the first G groups of the packed tables, in W = ``windows``
-    windows of ``window_bits(W)`` bits."""
+    windows of ``window_bits(W)`` bits, a lane summing K = ``lane_groups``
+    groups of a chunk of ``chunk_groups`` (default G) at a bit; L is
+    ``lane_slots``' count. K defaults to ``groups_per_lane``, which is 1
+    wherever ``windows_for`` splits the bits. Counts ``horner_groups`` (P G)
+    and ``horner_lanes`` (the lanes)."""
     S = window_bits(windows)
-    if kernels.on_cpu(packed, scalars):
-        return tuple(c.to(torch.int32) for c in msm_fixed_plain(packed, scalars, windows))
-    dev = kernels.check_cuda(packed, scalars)
-    Gt = packed.shape[0]
     P, n = scalars.shape[1], scalars.shape[2]
     G = n // GROUP
+    gc = chunk_groups or max(G, 1)
+    K = lane_groups or groups_per_lane(P, G, scalars.device)
+    if not 1 <= K <= MAX_LANE_GROUPS:
+        raise ValueError(f"msm_fixed_horner: {K} groups a lane, expected 1..{MAX_LANE_GROUPS}")
+    if P * G:
+        m = get_metrics()
+        m.count("horner_groups", P * G)
+        m.count("horner_lanes", P * windows * _lanes_run(G, K, gc))
+    if kernels.on_cpu(packed, scalars):
+        return tuple(c.to(torch.int32) for c in msm_fixed_plain(packed, scalars, windows, K, gc))
+    dev = kernels.check_cuda(packed, scalars)
+    Gt = packed.shape[0]
     if packed.shape != (Gt, NB, ENTRY) or scalars.shape[0] != 16 or n % GROUP or G > Gt:
         raise ValueError("msm_fixed_horner: bad table or scalar shape")
     packed, scalars = packed.contiguous(), scalars.contiguous()
-    out = tuple(torch.empty((24, P, windows, G), dtype=torch.int32, device=dev) for _ in range(3))
+    per_chunk, rest = lane_slots(G, K, gc)
+    L = G // gc * per_chunk + rest
+    out = tuple(torch.empty((24, P, windows, L), dtype=torch.int32, device=dev) for _ in range(3))
     if P * G:
-        kernels.launch("bpt_msm_fixed", dev, kernels.ptr(packed), kernels.ptr(scalars), P, G, windows, S,
-                       *(kernels.ptr(c) for c in out))
+        kernels.launch("bpt_msm_fixed", dev, kernels.ptr(packed), kernels.ptr(scalars), P, G, windows, S, K, gc,
+                       per_chunk, L, *(kernels.ptr(c) for c in out))
         msm_fixed_horner.launches += 1
-        msm_fixed_horner.lanes += P * windows * G
     return out
 
 
 msm_fixed_horner.launches = 0
-#: lanes (threads with a Horner loop) of all launches so far
-msm_fixed_horner.lanes = 0
 
 
 # -- join of the windows ----------------------------------------------------------
@@ -321,16 +413,18 @@ class FixedBaseTables:
         G = full * gc + rest
         dev = self.points[0].device
         W = windows_for(P * G, dev) if windows is None else windows
+        K = groups_per_lane(P, G, dev)
         sc = torch.zeros((16, P, G * GROUP), dtype=torch.int32, device=dev)
         for i, s in enumerate(scalars_list):
             sc[:, i, : s.shape[-1]] = s
-        part = msm_fixed_horner(self.tables(), sc, W)  # (24, P, W, G)
+        part = msm_fixed_horner(self.tables(), sc, W, K, gc)  # (24, P, W, L)
+        slots = lane_slots(G, K, gc)[0]  # a whole chunk's
         sums = []
         if full:
-            whole = tuple(c[..., : full * gc].reshape(24, P, W, full, gc) for c in part)
+            whole = tuple(c[..., : full * slots].reshape(24, P, W, full, slots) for c in part)
             sums.append(g1_vec.tree_reduce(whole))
         if rest:
-            tail = g1_vec.tree_reduce(tuple(c[..., full * gc :] for c in part))
+            tail = g1_vec.tree_reduce(tuple(c[..., full * slots :] for c in part))
             sums.append(tuple(c.unsqueeze(-1) for c in tail))
         chunks = tuple(torch.cat(cs, dim=-1) for cs in zip(*sums))  # (24, P, W, C)
         C = chunks[0].shape[-1]

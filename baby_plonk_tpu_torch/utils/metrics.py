@@ -47,7 +47,12 @@ Counters (``count``), each counted where the work happens:
 - ``pippenger_msms`` and ``pippenger_points``: +1 and +n at each
   variable-base Pippenger MSM over n points (``ops/msm_pippenger.py::
   msm_pippenger``), 9 calls a prove on that commit path, 0 on the
-  fixed-base one.
+  fixed-base one;
+- ``horner_groups`` and ``horner_lanes``: +P G and +P W (lanes a window)
+  at each fixed-base Horner launch of P scalar sets over G groups
+  (``ops/msm_fixed.py::msm_fixed_horner``), a lane being a slice of K
+  groups of one chunk: their ratio is K / W, how far the launch shares
+  its doublings (K > 1) or splits its bits (W > 1).
 
 All count whatever the device is, the CPU's included.
 """

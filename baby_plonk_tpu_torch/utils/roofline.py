@@ -31,17 +31,22 @@ def bound(nbytes, mads):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def horner_work(sc, G, windows):
+def horner_work(sc, G, windows, lane_groups=1, chunk_groups=None):
     """(bytes, multiply-adds) of one Horner launch of the fixed-base MSM
-    (``msm_fixed.msm_fixed_horner``) over raw scalars ``sc`` (16, P, 8 G):
-    tables of the G groups, scalars and partials once; per lane and step a
-    doubling, and a mixed addition where this run's index is not 0."""
+    (``msm_fixed.msm_fixed_horner``) over raw scalars ``sc`` (16, P, 8 G) at
+    K = ``lane_groups`` groups a lane in chunks of ``chunk_groups`` (default
+    G): tables of the G groups, scalars and partials once; per lane and
+    step a doubling, and a mixed addition for each of its groups where this
+    run's index is not 0."""
     from ..ops import msm_fixed
 
     P = sc.shape[1]
+    gc = chunk_groups or G
+    per_chunk, rest = msm_fixed.lane_slots(G, lane_groups, gc)
+    slots = G // gc * per_chunk + rest
     nonzero = sum(int((msm_fixed._table_index(sc, bit) != 0).sum()) for bit in range(msm_fixed.NBITS))
-    steps = P * G * msm_fixed.window_bits(windows) * windows
-    return (FQ_BYTES * 256 * G + FR_BYTES * P * 8 * G + 3 * FQ_BYTES * P * windows * G,
+    steps = P * msm_fixed._lanes_run(G, lane_groups, gc) * msm_fixed.window_bits(windows) * windows
+    return (FQ_BYTES * 256 * G + FR_BYTES * P * 8 * G + 3 * FQ_BYTES * P * windows * slots,
             DOUBLE_MADS * steps + FQ_MUL * MIXED_MULS * nonzero)
 
 

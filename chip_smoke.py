@@ -1064,14 +1064,14 @@ def main_path(dev, n, counters):
     phase("main: cold prove", t, f"spans: {get_metrics().report()}")
     get_metrics().reset()
     before = counts(counters)
-    lanes_before = counters["msm_fixed.msm_fixed_horner"].lanes
     t = time.perf_counter()
     proof = Prover(setup, program, engine).prove(witness)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t
     phase("main: warm prove", t, f"spans: {get_metrics().report()}")
     # 9 polynomials of 2^16 + 2..6 coefficients = 8193 groups each, times the windows
-    print(f"  Horner lanes in the warm prove: {counters['msm_fixed.msm_fixed_horner'].lanes - lanes_before}", flush=True)
+    horner = get_metrics().counters
+    print(f"  Horner groups and lanes in the warm prove: {horner['horner_groups']}, {horner['horner_lanes']}", flush=True)
     warm_counts = {k: v - before[k] for k, v in counts(counters).items()}
     t = time.perf_counter()
     ok = Verifier(setup, program, proof, engine=engine).verify(public)
@@ -1781,40 +1781,50 @@ def large_path(dev, counters, results):
                FR_BYTES * (17 * m + 6), 19 * FR_MUL * m, run="2^20", plain_shape=f"{m // step} slices of {step} lanes")
     del live, fixed, zh_inv, dpow, zw, got
     # the Horner kernel over the SRS's groups (131,073 at 2^20), 3 sets of
-    # n + 2 scalars (round 1's commit); the plain version on the first and
-    # last 128 groups
+    # n + 2 scalars (round 1's commit), at the commit's W and K; the plain
+    # version on the first 16 slices of the first and of the last whole
+    # chunk (their groups gathered into a chunk of their own, which slices
+    # them alike) and on the rest
     n_sc = n + 2
     scp = torch.zeros((16, 3, 8 * G), dtype=torch.int32, device=dev)
     scp[:, :, :n_sc] = random_field(rng, FR, (3, n_sc), dev)
     W = msm_fixed.windows_for(3 * G, dev)
-    part = msm_fixed.msm_fixed_horner(packed, scp, W)
-    k = min(128, G // 2)
-    ends = [slice(0, k), slice(G - k, G)]
-    sub_tables = torch.cat([packed[s] for s in ends])
-    sub_sc = torch.cat([scp[:, :, 8 * s.start : 8 * s.stop] for s in ends], dim=-1)
-    want, horner_plain_ms = once_ms(lambda: msm_fixed.msm_fixed_plain(sub_tables, sub_sc, W))
-    err = max_abs_err(tuple(torch.cat([c[..., s] for s in ends], dim=-1) for c in part), want)
+    K = msm_fixed.groups_per_lane(3, G, dev)
+    part = msm_fixed.msm_fixed_horner(packed, scp, W, K, gc)
+    slots, M = msm_fixed.lane_slots(G, K, gc)[0], -(-gc // K)
+    a = min(16, gc - (K - 1) * M)  # slices of K groups at the start of a chunk
+    pieces = [(torch.tensor([c * gc + s + k * M for k in range(K) for s in range(a)], device=dev), c * slots, a)
+              for c in (0, full - 1)]
+    if G > full * gc:
+        pieces.append((torch.arange(full * gc, G, device=dev), full * slots, -(-(G - full * gc) // K)))
+    err, horner_plain_ms = 0, 0.0
+    for groups, first, k in pieces:
+        sub = scp.reshape(16, 3, G, 8)[:, :, groups].reshape(16, 3, -1)
+        want, ms = once_ms(lambda: msm_fixed.msm_fixed_plain(packed[groups], sub, W, K, groups.numel()))
+        err = max(err, max_abs_err(tuple(c[..., first : first + k] for c in part), tuple(c[..., :k] for c in want)))
+        horner_plain_ms += ms
     record_row(results, f"msm_fixed_horner ({G:,} groups)", "baby_plonk_tpu_torch/csrc/msm_fixed.cu",
                f"{PALLAS}:242", "msm_fixed.msm_fixed_horner", err,
-               timed_events(lambda: msm_fixed.msm_fixed_horner(packed, scp, W), 3), horner_plain_ms,
-               *horner_work(scp, G, W), run="2^20", shape=f"3 x (2^{LARGE_LOG2} + 2) scalars, {G} groups, W = {W}",
-               windows=W, commit_ms=cuda_ms(lambda: tabs.msm_many([scp[:, i, :n_sc] for i in range(3)]), 3),
-               plain_shape=f"the first and last {k} groups, 3 sets")
-    # the group tree over the commit's whole chunks of 2048 groups (64 at 2^20)
-    whole = tuple(c[..., : full * gc].reshape(24, 3, W, full, gc) for c in part)
+               timed_events(lambda: msm_fixed.msm_fixed_horner(packed, scp, W, K, gc), 3), horner_plain_ms,
+               *horner_work(scp, G, W, K, gc), run="2^20",
+               shape=f"3 x (2^{LARGE_LOG2} + 2) scalars, {G} groups, W = {W}, K = {K}", windows=W, lane_groups=K,
+               commit_ms=cuda_ms(lambda: tabs.msm_many([scp[:, i, :n_sc] for i in range(3)]), 3),
+               plain_shape=f"{a} slices of the first and the last whole chunk and the rest, 3 sets")
+    # the group tree over the commit's whole chunks of slots (64 at 2^20)
+    whole = tuple(c[..., : full * slots].reshape(24, 3, W, full, slots) for c in part)
     want, tree_plain_ms = once_ms(lambda: g1_vec.tree_reduce_plain(whole))
     one_a, one_b = (tuple(c[:, 0, 0, i].contiguous() for c in part) for i in (0, 1))
     add_ms = device_ms(lambda: g1_vec.padd(one_a, one_b), 100)  # one lane: the depth floor's unit
-    levels = gc.bit_length() - 1
-    nbytes, mads = tree_work(gc, 3 * W * full)
+    levels = slots.bit_length() - 1
+    nbytes, mads = tree_work(slots, 3 * W * full)
     ms = device_ms(lambda: g1_vec.tree_reduce(whole), 10)
-    record_row(results, f"g1_tree (24, 3, {W}, {full}, {gc})", "baby_plonk_tpu_torch/csrc/g1.cu",
+    record_row(results, f"g1_tree (24, 3, {W}, {full}, {slots})", "baby_plonk_tpu_torch/csrc/g1.cu",
                "baby_plonk_tpu/ops/g1_vec.py:298", "g1_vec.tree_reduce", max_abs_err(g1_vec.tree_reduce(whole), want),
                (ms, host_us(lambda: g1_vec.tree_reduce(whole), 10)), tree_plain_ms, nbytes, mads, run="2^20",
                shape=str(tuple(whole[0].shape)), levels=levels, depth_floor_ms=levels * add_ms, add_ms=add_ms,
                share_of_floor=max(levels * add_ms, bound(nbytes, mads)[0]) / ms,
-               plan=g1_vec.tree_plan(gc, 3 * W * full, torch.cuda.get_device_properties(dev).multi_processor_count))
-    del part, whole, want, scp, sub_sc
+               plan=g1_vec.tree_plan(slots, 3 * W * full, torch.cuda.get_device_properties(dev).multi_processor_count))
+    del part, whole, want, scp
     # the table build over the SRS's groups; the plain version on the first
     # 1024 groups and the last one (copies of point 0 pad it)
     pts = srs.setup_points(setup, dev)

@@ -167,6 +167,29 @@ def test_windowed_horner_and_join(dev, windows):
         msm_host.msm(host_pts[: len(v)], v) for v in ints]
 
 
+@pytest.mark.parametrize("K, windows", [(1, 1), (1, 4), (2, 1), (3, 1), (8, 1), (3, 2)])
+def test_horner_groups_per_lane(dev, K, windows):
+    """K groups a lane against the plain version, limb for limb: 13 groups
+    (the edge groups, whose tables hold (0, 0) markers at nonzero indices,
+    then SRS points) in chunks of 5, which K = 2, 3, 8 do not divide, and
+    a ragged rest of 3; one group's scalars all zero (index 0 at every
+    step) and a few zero scalars elsewhere; 2 sets, the second shorter."""
+    edge = g1_vec.points_to_device([p for g in edge_groups() for p in g], dev)
+    more = srs.powers_of_tau_device(40, 77, dev)
+    packed = msm_fixed.build_tables(*(torch.cat([a, b], dim=-1) for a, b in zip(edge, more)))
+    ints = field_ints(61, fr.Q, 2 * 104)
+    ints[8:16] = [0] * 8
+    ints[30], ints[77], ints[104 + 50 :] = 0, 0, [0] * 54
+    sc = limbs.FR.pack_raw(ints, dev).reshape(16, 2, 104)
+    before = msm_fixed.msm_fixed_horner.launches
+    got = msm_fixed.msm_fixed_horner(packed, sc, windows, K, 5)
+    assert msm_fixed.msm_fixed_horner.launches == before + 1
+    per_chunk, rest = msm_fixed.lane_slots(13, K, 5)
+    assert got[0].shape == (24, 2, windows, 2 * per_chunk + rest)
+    want = msm_fixed.msm_fixed_plain(packed, sc, windows, K, 5)
+    assert all(torch.equal(g.long(), w) for g, w in zip(got, want))
+
+
 def test_msm_partials_and_pdouble(dev):
     """The bit-serial tile kernel and the doubling launcher against their
     plain versions, limb for limb; both MSM algorithms against the exact
