@@ -216,30 +216,37 @@ def test_proofs_of_a_learned_order_equal_the_host_engines():
 @needs_native
 def test_threads_reading_in_two_orders_get_their_own_bytes():
     """Two orders fight over one table's learned order: each read is either
-    a miss or its own witness's bytes, never the other order's."""
+    a miss or its own witness's bytes, never the other order's. Every read
+    races the other threads' learning; each learning, and one read right
+    after it, holds a lock that no read takes, so every worker has hits
+    however the threads are scheduled."""
     table = _program().wire_table()
     forms = [(_witness(5), _witness(5, order=SHUFFLED)), (_witness(7, order=SHUFFLED), _witness(7))]
     want = [bytes(bytearray().join(int.to_bytes(v % Q, 32, "little") for v in table.values(w))) for w, _ in forms]
-    errors, reads = [], [0, 0]
+    errors, reads = [], [0, 0, 0, 0]  # one slot a thread: no two threads add to one count
+    learning = threading.Lock()
+    orders = (0, 1, 0, 1)
 
-    def worker(i):
+    def worker(t, i):
         try:
             for r in range(300):
                 w = forms[i][r % 2]
                 got = table.packed(w)
                 if got is None:
                     table.values(w)
-                    table.learn(w)
-                else:
-                    assert got.tobytes() == want[i]
-                    reads[i] += 1
+                    with learning:  # no other thread learns before this read
+                        table.learn(w)
+                        got = table.packed(w)
+                    assert got is not None
+                assert got.tobytes() == want[i]
+                reads[t] += 1
         except Exception as e:  # reported below: an assertion in a thread does not fail the test
             errors.append(e)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1, 0, 1)]
+        threads = [threading.Thread(target=worker, args=(t, i)) for t, i in enumerate(orders)]
         for t in threads:
             t.start()
         for t in threads:
@@ -247,4 +254,4 @@ def test_threads_reading_in_two_orders_get_their_own_bytes():
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
-    assert errors == [] and min(reads) > 0
+    assert errors == [] and reads == [300] * len(orders)
